@@ -1,0 +1,235 @@
+"""K1: the fused vector-field apply, its packing and its plain version.
+
+Replaces ``mfm_tpu/ops/field_pallas.py::_pallas_apply`` (the Pallas kernel
+body ``_forward``). ``field_apply(packed, layout, act, freqs, x, t, ex)``
+returns ``(field, gate)`` of the ``VectorFieldNet`` MLP, and with ``ex`` of
+shape (K, B, d) also ``dfield`` (K, B, d), the K x-tangents pushed through
+the same weights. The score gate is added by the caller.
+
+On a CPU tensor the wrapper runs ``field_apply_plain``; on a CUDA tensor it
+launches ``csrc/field.cu`` or raises. The kernel is forward only: it raises
+on inputs that require grad (training differentiates the ``nn.Module``).
+"""
+
+import ctypes
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from mfm_tpu_torch.ops import build
+
+ACTIVATIONS = ("relu", "tanh")
+MAX_WIDTH = 128  # output columns per layer a block covers (16 x 8 per thread)
+MAX_FOURIER = 128
+MAX_LAYERS = 16
+MAX_ROWS = 80  # primal + tangent rows per block (16 x 5 per thread)
+MAX_TANGENTS_PER_BLOCK = 8
+
+
+class FieldLayout(NamedTuple):
+    """Where each layer of the packed buffer lives. Layer order: t-trunk,
+    x-trunk, xt-trunk (the joint first layer is xt[0]), gate, field; each
+    matrix (in, out) row-major, as ``field_pallas.split_params`` orders
+    them. The joint first layer's x-half starts at its ``w_off``, its
+    t-half (``ht`` rows) at ``wt_off``."""
+
+    n_t: int
+    n_x: int
+    n_xt: int
+    F: int
+    d: int
+    wt_off: int
+    ht: int
+    max_w: int
+    max_t: int
+    w_off: Tuple[int, ...]
+    b_off: Tuple[int, ...]
+    k_in: Tuple[int, ...]
+    n_out: Tuple[int, ...]
+    size: int
+
+    def meta_array(self, act: str):
+        """The ``FieldMeta`` struct of csrc/field.cu as a C int array."""
+        pad = lambda v: list(v) + [0] * (MAX_LAYERS - len(v))
+        ints = [self.n_t, self.n_x, self.n_xt, self.F, self.d,
+                ACTIVATIONS.index(act), self.wt_off, self.ht, self.max_w, self.max_t]
+        ints += pad(self.w_off) + pad(self.b_off) + pad(self.k_in) + pad(self.n_out)
+        return (ctypes.c_int * len(ints))(*ints)
+
+
+def _layer_names(params: dict, trunk: str):
+    n = 0
+    while f"{trunk}.{n}.weight" in params:
+        n += 1
+    return [f"{trunk}.{i}" for i in range(n)]
+
+
+def _ordered_layers(params: dict):
+    return (
+        _layer_names(params, "t_trunk"),
+        _layer_names(params, "x_trunk"),
+        _layer_names(params, "xt_trunk"),
+    )
+
+
+def field_layout(params: dict, n_fourier: int) -> FieldLayout:
+    """The packed layout of a ``VectorFieldNet`` parameter dict."""
+    t_names, x_names, xt_names = _ordered_layers(params)
+    if not xt_names:
+        raise ValueError("the fused field needs at least one joint-trunk layer")
+    names = t_names + x_names + xt_names + ["gate_head", "field_head"]
+    w_off, b_off, k_in, n_out = [], [], [], []
+    off = 0
+    for name in names:
+        out_f, in_f = params[f"{name}.weight"].shape
+        w_off.append(off)
+        off += in_f * out_f
+        b_off.append(off)
+        off += out_f
+        k_in.append(in_f)
+        n_out.append(out_f)
+    d = n_out[-1]
+    ht = n_out[len(t_names) - 1] if t_names else 2 * n_fourier
+    joint = len(t_names) + len(x_names)
+    hx = k_in[joint] - ht
+    k_in[joint] = hx  # the x-half; the t-half is a second product
+    return FieldLayout(
+        n_t=len(t_names), n_x=len(x_names), n_xt=len(xt_names), F=n_fourier, d=d,
+        wt_off=w_off[joint] + hx * n_out[joint], ht=ht,
+        max_w=max([d] + n_out[len(t_names):joint + len(xt_names)]),
+        max_t=max([2 * n_fourier] + n_out[: len(t_names)]),
+        w_off=tuple(w_off), b_off=tuple(b_off), k_in=tuple(k_in),
+        n_out=tuple(n_out), size=off,
+    )
+
+
+def pack_field_params(params: dict, layout: FieldLayout) -> torch.Tensor:
+    """One contiguous fp32 buffer: per layer W^T (in, out) then the bias."""
+    t_names, x_names, xt_names = _ordered_layers(params)
+    parts = []
+    for name in t_names + x_names + xt_names + ["gate_head", "field_head"]:
+        parts.append(params[f"{name}.weight"].detach().t().reshape(-1))
+        parts.append(params[f"{name}.bias"].detach().reshape(-1))
+    packed = torch.cat(parts).to(torch.float32).contiguous()
+    assert packed.numel() == layout.size
+    return packed
+
+
+_ACT_FNS = {
+    "relu": (torch.relu, lambda z: (z > 0.0).to(z.dtype)),
+    "tanh": (torch.tanh, lambda z: 1.0 - torch.tanh(z) ** 2),
+}
+
+
+def field_apply_plain(packed, layout: FieldLayout, act: str, freqs, x, t, ex=None):
+    """Plain PyTorch version of the kernel, with the same split-weight
+    algebra as ``field_pallas._reference_apply``; the K tangents ride a
+    leading batch axis of the same products."""
+    a, da = _ACT_FNS[act]
+
+    def weight(l, k_in=None, off=None):
+        k = layout.k_in[l] if k_in is None else k_in
+        o = layout.w_off[l] if off is None else off
+        return packed[o : o + k * layout.n_out[l]].view(k, layout.n_out[l])
+
+    def bias(l):
+        return packed[layout.b_off[l] : layout.b_off[l] + layout.n_out[l]]
+
+    L = 0
+    ang = (2.0 * math.pi) * t[:, None] * freqs[None, :]
+    if layout.n_t:
+        w0 = weight(0)
+        h_t = a(torch.cos(ang) @ w0[: layout.F] + torch.sin(ang) @ w0[layout.F :] + bias(0))
+        for L in range(1, layout.n_t):
+            h_t = a(h_t @ weight(L) + bias(L))
+        L = layout.n_t
+    else:
+        h_t = torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+    h, dh = x, ex
+    for i in range(layout.n_x + layout.n_xt):
+        w = weight(L)
+        z = h @ w + bias(L)
+        if i == layout.n_x:  # joint first layer: the t-half
+            z = z + h_t @ weight(L, k_in=layout.ht, off=layout.wt_off)
+        if dh is not None:
+            dh = da(z) * (dh @ w)
+        h = a(z)
+        L += 1
+    gate = h_t @ weight(L) + bias(L)
+    wf = weight(L + 1)
+    field = h @ wf + bias(L + 1)
+    if ex is None:
+        return field, gate
+    return field, gate, dh @ wf
+
+
+def check_fits(layout: FieldLayout) -> None:
+    """Raise if the field is wider than the kernel takes."""
+    n_layers = layout.n_t + layout.n_x + layout.n_xt + 2
+    if n_layers > MAX_LAYERS:
+        raise ValueError(f"fused field takes at most {MAX_LAYERS} layers, got {n_layers}")
+    if max(layout.n_out) > MAX_WIDTH or layout.F > MAX_FOURIER:
+        raise ValueError(
+            f"fused field takes widths and d <= {MAX_WIDTH} and at most "
+            f"{MAX_FOURIER} Fourier features; got widths {layout.n_out}, "
+            f"F={layout.F}"
+        )
+
+
+def block_shape(n_tangents: int) -> Tuple[int, int]:
+    """(rows TB, tangents KC) per block: R = TB * (1 + KC) <= MAX_ROWS."""
+    kc = min(n_tangents, MAX_TANGENTS_PER_BLOCK)
+    return min(16, MAX_ROWS // (1 + kc)), kc
+
+
+def field_apply(
+    packed: torch.Tensor,
+    layout: FieldLayout,
+    act: str,
+    freqs: torch.Tensor,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    ex: Optional[torch.Tensor] = None,
+):
+    """(field, gate[, dfield]) for x (B, d), t (B,), ex (K, B, d)."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"fused field supports activations {ACTIVATIONS}, got {act!r}")
+    if x.device.type == "cpu":
+        return field_apply_plain(packed, layout, act, freqs, x, t, ex)
+    if x.device.type != "cuda":
+        raise ValueError(f"field_apply: unsupported device {x.device}")
+    check_fits(layout)
+    B, d = x.shape
+    K = 0 if ex is None else ex.shape[0]
+    tensors = {"packed": packed, "freqs": freqs, "x": x, "t": t}
+    if ex is not None:
+        tensors["ex"] = ex
+    for name, v in tensors.items():
+        if v.device != x.device or v.dtype != torch.float32 or not v.is_contiguous():
+            raise ValueError(f"field_apply: {name} must be contiguous float32 on {x.device}")
+        if v.requires_grad:
+            raise ValueError(f"field_apply: {name} requires grad; the kernel is forward only")
+    if d != layout.d or t.shape != (B,) or freqs.shape != (layout.F,) or (
+        ex is not None and ex.shape[1:] != (B, d)
+    ) or packed.numel() != layout.size:
+        raise ValueError("field_apply: shapes do not match the layout")
+    field = torch.empty_like(x)
+    gate = torch.empty_like(x)
+    dfield = torch.empty((K, B, d), device=x.device) if K else None
+    tb, kc = block_shape(K)
+    meta = layout.meta_array(act)  # kept alive across the call
+    lib = build.load_library()
+    err = lib.mfm_field_apply(
+        packed.data_ptr(), ctypes.addressof(meta),
+        freqs.data_ptr(), x.data_ptr(), t.data_ptr(),
+        ex.data_ptr() if K else None, field.data_ptr(), gate.data_ptr(),
+        dfield.data_ptr() if K else None, B, K, tb, kc,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "field_apply")
+    field_apply.launches += 1
+    return (field, gate) if ex is None else (field, gate, dfield)
+
+
+field_apply.launches = 0
