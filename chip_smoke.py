@@ -11,19 +11,27 @@ own; any failure exits non-zero before the final line:
 3. each kernel against its plain PyTorch version at the slice's shapes:
    K1 primal and with K=64 tangents (B=1024, d=64, widths 128, F=128,
    relu, every parameter perturbed so the heads are non-zero), K2a at
-   (1024, 64) and (12800, 2), K2b at (12800, 2); errors and CUDA-event
-   times of kernel and plain version;
+   (1024, 64) and (12800, 2), K2b at (12800, 2), K3 (value and score) at
+   (1024, 64) Dirichlet, (1024, 64) periodic and (37, 64) with the ends at
+   0.5; errors and CUDA-event times of kernel and plain version;
 4. one forward + inverse transport through the kernel against the same
    transport through the nn.Module (torch.func.jvp), B=1024, d=64, with the
-   phi-four score gate: x, u and logdet; then, with a large gate, the
-   kernel path's divergence against the trace of the autograd Jacobian of
-   the whole field (score gate included), B=16, d=64;
-5. the phi-four slice through mfm_tpu_torch.cli.main (d=64, 1024 chains,
-   128-wide trunks, exact divergence, 24 RK4 steps, the fused field), with
-   the ESS of the final IS weights;
-6. a 4-mode run through the same entry point (reaches the MMD kernel).
+   phi-four score gate: x, u and logdet; the K3-backed score's tangent over
+   the 64 basis vectors against jvp(grad(...)) of an autodiff stencil that
+   shares no code with it, B=1024, d=64, with both times; then, with a
+   large gate, the kernel path's divergence against the trace of the
+   autograd Jacobian of the whole field (score gate included), B=16, d=64;
+5. the phi-four preset as shipped, through mfm_tpu_torch.cli.main (d=64,
+   1024 chains, 128-wide trunks, the bf16 field, exact divergence, 24 RK4
+   steps, PhiFour on K3, 500 iterations), with the ESS of the final IS
+   weights;
+6. the same with the 'phifour' reference (--ref-dist phifour), 100
+   iterations;
+7. the same with the fused fp32 field (field_precision=highest,
+   pallas_field=true), 300 iterations;
+8. a 4-mode run through the same entry point (reaches the MMD kernel).
 
-The launch counters are zeroed just before phase 5 and read after phase 6:
+The launch counters are zeroed just before phase 5 and read after phase 8:
 every kernel must have been launched by the main path. The line before
 last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -120,7 +128,7 @@ def perturbed_net(torch, dim, width, n_fourier, score_fn, seed=0, gate_scale=0.0
 
 
 def phase_kernels(torch, report):
-    from mfm_tpu_torch.ops import field, pairwise
+    from mfm_tpu_torch.ops import field, pairwise, phi_four
     from mfm_tpu_torch.targets import PhiFour, four_mode_mixture
 
     dev = torch.device("cuda")
@@ -202,6 +210,33 @@ def phase_kernels(torch, report):
     report["rbf_kernel_sum"] = dict(max_abs_err=err[0], max_rel_err=err[1], ms=ms,
                                     plain_ms=plain_ms, shape="Ta=Tb=12800 d=2")
 
+    # K3: value and score are fp32 sums of d terms (warp shuffles against
+    # torch's reduction) and one stencil per site; 1e-5 relative to each
+    # output's largest entry. The first case is the main path's shape, whose
+    # times are reported.
+    tol_k3 = 1e-5
+    k3 = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for B3, D3, pbc, bc in ((1024, 64, False, 0.0), (1024, 64, True, 0.0), (37, 64, False, 0.5)):
+        x = 1.5 * torch.randn((B3, D3), generator=gen, device=dev)
+        args = (0.1, 20.0, pbc, bc)
+        kern = lambda: phi_four.phi_four_value_and_score(x, *args)
+        plain = lambda: phi_four.phi_four_value_and_score_plain(x, *args)
+        (v_k, s_k), (v_p, s_p) = kern(), plain()
+        v_only, no_score = phi_four.phi_four_value_and_score(x, *args, with_score=False)
+        torch.cuda.synchronize()
+        err = max(errors(torch, v_k, v_p), errors(torch, s_k, s_p))
+        ms, plain_ms = cuda_ms(torch, kern, 50), cuda_ms(torch, plain, 50)
+        print(f"[3 K3 B={B3} d={D3} {'pbc' if pbc else f'dirichlet {bc}'}] max abs {err[0]:.3e} "
+              f"rel {err[1]:.3e} (tol rel {tol_k3}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+              flush=True)
+        if not (err[1] <= tol_k3 and no_score is None and torch.equal(v_only, v_k)):
+            fail(f"K3 at ({B3}, {D3}) pbc={pbc} bc={bc} disagrees with its plain version")
+        k3 = dict(max_abs_err=max(k3["max_abs_err"], err[0]),
+                  max_rel_err=max(k3["max_rel_err"], err[1]),
+                  ms=k3.get("ms", ms), plain_ms=k3.get("plain_ms", plain_ms),
+                  shape="B=1024 d=64 dirichlet, value and score")
+    report["phi_four_value_and_score"] = k3
+
 
 def phase_transport(torch):
     from mfm_tpu_torch.flows import kernel_tangent_field, make_transport, module_tangent_field
@@ -232,6 +267,32 @@ def phase_transport(torch):
           f"{float(lfk.max()):.3f}]; fwd+inv kernel {tk:.3f} s, module {tm:.3f} s", flush=True)
     if not (finite and ex <= 1e-4 and eu <= 1e-4 and eld <= 1e-3):
         fail("the kernel transport disagrees with the module transport")
+
+    # The score gate's tangent: the K3-backed score's analytic H e against
+    # forward-over-reverse autodiff of a stencil written out here, over the
+    # 64 basis tangents of an exact-divergence stage. fp32 both, 1e-5
+    # relative to the largest entry.
+    from torch.func import grad, jvp, vmap
+
+    def stencil_log_lik(y):  # the log-density, independent of ops/phi_four.py
+        c = 0.1 * y.shape[-1]
+        w = 1.0 - y * y
+        y_ = torch.nn.functional.pad(y, (1, 1))
+        d1 = y_[..., 1:] - y_[..., :-1]
+        return -20.0 * (0.5 * c * torch.sum(d1 * d1, -1) + torch.sum(w * w, -1) / (4.0 * c))
+
+    x = 1.5 * torch.rand((1024, 64), generator=gen, device="cuda") - 0.75
+    basis = torch.eye(64, device="cuda")[:, None, :].expand(64, 1024, 64)
+    k3_tangent = lambda: vmap(lambda e: jvp(target.score, (x,), (e,))[1])(basis)
+    autodiff = lambda: vmap(
+        lambda e: jvp(grad(lambda y: stencil_log_lik(y).sum()), (x,), (e,))[1]
+    )(basis)
+    err = errors(torch, k3_tangent(), autodiff())
+    ms, ad_ms = cuda_ms(torch, k3_tangent, 10), cuda_ms(torch, autodiff, 10)
+    print(f"[4 score tangent B=1024 d=64 K=64] max abs {err[0]:.3e} rel {err[1]:.3e} (tol rel "
+          f"1e-5); K3-backed H e {ms:.4f} ms, autodiff jvp(grad) {ad_ms:.4f} ms", flush=True)
+    if not err[1] <= 1e-5:
+        fail("the K3-backed score's tangent is not the stencil's Hessian-vector product")
 
     # The two transports share the score-gate term, and its gate is tiny
     # above. Here the gate is large (no ODE to keep stable): the kernel
@@ -287,7 +348,7 @@ def main():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     try:
         import mfm_tpu_torch  # noqa: F401
-        from mfm_tpu_torch.ops import field, pairwise
+        from mfm_tpu_torch.ops import field, pairwise, phi_four
     except ImportError as e:
         fail(f"the port is not importable beside this script: {e}")
 
@@ -297,17 +358,26 @@ def main():
     phase_kernels(torch, report)
     phase_transport(torch)
 
-    counters = (field.field_apply, pairwise.stein_pairwise_sum, pairwise.rbf_kernel_sum)
+    counters = (field.field_apply, pairwise.stein_pairwise_sum, pairwise.rbf_kernel_sum,
+                phi_four.phi_four_value_and_score)
     for fn in counters:
         fn.launches = 0
-    run_cli(["--example", "phi-four", "--seed", "0", "--learning-iter", "500",
-             "--set", "field_precision=highest", "--set", "pallas_field=true"],
-            "5 phi-four")
-    print(f"[5 launches] " + " ".join(f"{f.__name__}={f.launches}" for f in counters),
-          flush=True)
-    run_cli(["--example", "4-mode", "--seed", "0", "--learning-iter", "200"], "6 4-mode")
+    phases = [
+        (["--example", "phi-four", "--seed", "0", "--learning-iter", "500"], "5 phi-four"),
+        (["--example", "phi-four", "--seed", "0", "--learning-iter", "100",
+          "--ref-dist", "phifour"], "6 phi-four phifour-ref"),
+        (["--example", "phi-four", "--seed", "0", "--learning-iter", "300",
+          "--set", "field_precision=highest", "--set", "pallas_field=true"],
+         "7 phi-four fused field"),
+        (["--example", "4-mode", "--seed", "0", "--learning-iter", "200"], "8 4-mode"),
+    ]
+    for argv, label in phases:
+        before = [f.launches for f in counters]
+        run_cli(argv, label)
+        print(f"[{label.split()[0]} launches] " + " ".join(
+            f"{f.__name__}={f.launches - b}" for f, b in zip(counters, before)), flush=True)
     launches = {f.__name__: f.launches for f in counters}
-    print(f"[5+6 launches] {json.dumps(launches)}", flush=True)
+    print(f"[5-8 launches] {json.dumps(launches)}", flush=True)
     if not all(launches.values()):
         fail(f"a kernel of the main path was never launched: {launches}")
 
@@ -317,6 +387,8 @@ def main():
                                "mfm_tpu/ops/pairwise_pallas.py:76"),
         "rbf_kernel_sum": ("mfm_tpu_torch/csrc/pairwise.cu",
                            "mfm_tpu/ops/pairwise_pallas.py:137"),
+        "phi_four_value_and_score": ("mfm_tpu_torch/csrc/phi_four.cu",
+                                     "mfm_tpu/ops/phi_four_pallas.py:58"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

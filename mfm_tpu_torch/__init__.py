@@ -6,12 +6,14 @@ reference every module here is tested against. The package keeps
 ``mfm_tpu``'s subpackage and module names:
 
 - ``targets``      unnormalised target densities (4-mode, 16-mode, phi-four)
+                   and the flow references (Gaussian, bimodal, flat, phi^4)
 - ``kernels``      the ensemble MALA kernel and its accept/reject algebra
 - ``smc``          the fixed-iteration bisection used by tempering
 - ``flows``        the CNF vector field, ODE transport, flow-matching loss,
                    the hand-written AdamW and the pullback random-walk MH
 - ``ops``          the CUDA kernels (fused field apply, pairwise Stein/RBF
-                   sums), each with its plain PyTorch version
+                   sums, phi^4 value and score), each with its plain
+                   PyTorch version
 - ``diagnostics``  Stein discrepancy and MMD
 - ``drivers``      the MFM training loop, final sampling and evaluation
 - ``utils``        flax -> torch parameter conversion

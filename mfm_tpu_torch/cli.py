@@ -1,8 +1,13 @@
 """Command-line driver for the port (counterpart of ``mfm_tpu.cli``).
 
     python -m mfm_tpu_torch.cli --example 4-mode --seed 0 --learning-iter 200
-    python -m mfm_tpu_torch.cli --example phi-four --seed 0 \\
-        --set field_precision=highest --set pallas_field=true
+    python -m mfm_tpu_torch.cli --example phi-four --seed 0 --learning-iter 500
+    python -m mfm_tpu_torch.cli --example phi-four --seed 0 --ref-dist phifour
+
+Each example runs its preset as ``mfm_tpu`` ships it (phi-four: the bf16
+field, ``field_precision='default'``); ``--set`` overrides any config field,
+e.g. ``--set field_precision=highest --set pallas_field=true`` for the
+fused fp32 field kernel.
 
 Trains, samples through the flow with the IS correction, evaluates, and
 prints the reference's metric row (logpdf / KSD-U / KSD-V / MMD / time; the
@@ -106,6 +111,8 @@ def main(argv=None):
     p.add_argument("--hutchs", action="store_true")
     p.add_argument("--step-size", type=float, default=None)
     p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--ref-dist", default=None,
+                   help="flow reference (default: preset choice)")
     p.add_argument("--ode-steps", type=int, default=None)
     p.add_argument("--alpha", type=float, default=None)
     p.add_argument("--chunk-size", type=int, default=None)
@@ -131,6 +138,8 @@ def main(argv=None):
         raise SystemExit("--device cuda: no CUDA device is available")
 
     overrides = {"mcmc_per_flow_steps": args.mcmc_per_flow_steps}
+    if args.ref_dist is not None:
+        overrides["ref_dist"] = args.ref_dist
     if args.hutchs:
         overrides["hutchinson"] = True
     for name in ("learning_iter", "num_chain", "step_size", "learning_rate",

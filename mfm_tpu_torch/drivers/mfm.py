@@ -42,6 +42,7 @@ from mfm_tpu_torch.flows import (
     select_flow_kernel,
 )
 from mfm_tpu_torch.flows.train import TrainState
+from mfm_tpu_torch.flows.vector_field import PRECISIONS
 from mfm_tpu_torch.kernels import ChainState, mala
 from mfm_tpu_torch.ops.field import ACTIVATIONS, check_fits, field_layout
 from mfm_tpu_torch.smc.solvers import bisection
@@ -123,15 +124,20 @@ def _interleave_is_flow(count: int, mcmc_per_flow_steps: float) -> bool:
 
 
 def set_field_precision(field_precision: str) -> None:
-    """'highest' is exact fp32: TF32 off for matmuls and cuDNN, explicitly.
-    The bf16 field ('default') is not ported yet."""
-    if field_precision != "highest":
-        raise NotImplementedError(
-            f"field_precision={field_precision!r} (the bf16 field) is not ported "
-            "yet; pass --set field_precision=highest"
+    """Check ``field_precision`` and pin the process's fp32 products exact.
+
+    The precision itself is a property of the net (``VectorFieldNet``'s
+    ``precision``, per layer): 'highest' fp32, 'default' bf16 operands with
+    fp32 accumulation. Either way, TF32 stays off for matmuls and cuDNN, so
+    the targets' fp32 contractions stay exact, and cuBLAS may not reduce a
+    bf16 product in reduced precision."""
+    if field_precision not in PRECISIONS:
+        raise ValueError(
+            f"field_precision must be one of {PRECISIONS}, got {field_precision!r}"
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _check_ported(cfg) -> None:
@@ -162,12 +168,18 @@ def build_mfm(
     net = VectorFieldNet(
         d, fourier, tuple(cfg.hidden_x), tuple(cfg.hidden_t), tuple(cfg.hidden_xt),
         act=cfg.non_linearity, score_fn=target.score, score_clip=cfg.score_clip,
-        generator=init_generator,
+        generator=init_generator, precision=cfg.field_precision,
     ).to(device)
 
     # pallas_field asks for the fused kernel: a net it cannot take is refused
     # (the reference falls back to its flax path; the port never falls back)
     if cfg.pallas_field:
+        if cfg.field_precision != "highest":
+            raise ValueError(
+                "pallas_field: the fused field computes in exact fp32 only, got "
+                f"field_precision={cfg.field_precision!r}; set pallas_field=false "
+                "or field_precision=highest"
+            )
         if cfg.non_linearity not in ACTIVATIONS:
             raise ValueError(
                 f"pallas_field: the fused field supports activations {ACTIVATIONS}, "
@@ -180,9 +192,7 @@ def build_mfm(
     transport = make_transport(
         bind, divergence=cfg.divergence, n_steps=cfg.ode_steps, method=cfg.ode_method
     )
-    if cfg.ref_dist == "prior":
-        raise NotImplementedError("ref_dist='prior' is not ported yet")
-    ref_dist = make_ref_dist(cfg.ref_dist, d)
+    ref_dist = make_ref_dist(cfg.ref_dist, d, device)
     lr_fn = make_lr_schedule(cfg.learning_iter, cfg.warmup_steps, cfg.learning_rate)
     tx = adamw_finite(
         lr_fn, weight_decay=cfg.weight_decay, b1=cfg.adam_beta1, b2=cfg.adam_beta2,

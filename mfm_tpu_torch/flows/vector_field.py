@@ -10,6 +10,11 @@ carry the parameters as a plain ``{name: tensor}`` dict and evaluate the net
 with ``torch.func.functional_call``, as the reference carries a flax tree.
 Parameter names follow the flax tree (``t_trunk.0`` <-> ``t_trunk/Dense_0``),
 see ``mfm_tpu_torch.utils.convert``.
+
+``precision`` is the reference's ``field_precision``, a property of every
+``Dense`` layer of the net (trunks, gate head, field head): 'highest' is
+fp32 throughout; 'default' multiplies bf16 operands (see ``Dense``). The
+Fourier features, biases, activations and the score gate stay fp32.
 """
 
 import math
@@ -32,10 +37,38 @@ NON_LINEARITIES = {
 _TRUNC_STD = 0.87962566103423978
 
 
-def _trunk(widths: Sequence[int], fan_in: int) -> nn.ModuleList:
+PRECISIONS = ("highest", "default")
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` at a field precision.
+
+    'default' is the reference's ``precision=None`` on a TPU: bf16 operands,
+    fp32 accumulation, fp32 result. It is written as one bf16 ``F.linear``
+    (fp32 accumulation inside the GEMM, on the tensor cores on a GPU) cast
+    back to fp32, because a bf16 product with an fp32 output
+    (``torch.mm(..., out_dtype=torch.float32)``) has no CPU kernel, and the
+    CPU tests must run this same code. The price is one bf16 rounding of
+    each product's output, which the TPU does not have. Under
+    ``torch.func.jvp`` the tangent goes through the same bf16 product.
+    """
+
+    def __init__(self, in_features: int, out_features: int, precision: str = "highest"):
+        super().__init__(in_features, out_features)
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+        self.precision = precision
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        if self.precision == "highest":
+            return super().forward(h)
+        return F.linear(h.bfloat16(), self.weight.bfloat16()).float() + self.bias
+
+
+def _trunk(widths: Sequence[int], fan_in: int, precision: str) -> nn.ModuleList:
     layers = nn.ModuleList()
     for width in widths:
-        layers.append(nn.Linear(fan_in, width))
+        layers.append(Dense(fan_in, width, precision))
         fan_in = width
     return layers
 
@@ -52,6 +85,7 @@ class VectorFieldNet(nn.Module):
         score_fn: Optional[Callable] = None,
         score_clip: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
+        precision: str = "highest",
     ):
         super().__init__()
         self.dim = dim
@@ -61,13 +95,13 @@ class VectorFieldNet(nn.Module):
         self.score_clip = score_clip
         self.register_buffer("fourier_freqs", torch.as_tensor(fourier_freqs))
         n_feat = 2 * self.fourier_freqs.shape[0]
-        self.t_trunk = _trunk(hidden_t, n_feat)
-        self.x_trunk = _trunk(hidden_x, dim)
+        self.t_trunk = _trunk(hidden_t, n_feat, precision)
+        self.x_trunk = _trunk(hidden_x, dim, precision)
         ht = hidden_t[-1] if hidden_t else n_feat
         hx = hidden_x[-1] if hidden_x else dim
-        self.xt_trunk = _trunk(hidden_xt, hx + ht)
-        self.gate_head = nn.Linear(ht, dim)
-        self.field_head = nn.Linear(hidden_xt[-1] if hidden_xt else hx + ht, dim)
+        self.xt_trunk = _trunk(hidden_xt, hx + ht, precision)
+        self.gate_head = Dense(ht, dim, precision)
+        self.field_head = Dense(hidden_xt[-1] if hidden_xt else hx + ht, dim, precision)
         self._init_params(generator)
 
     @torch.no_grad()

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "mfm_tpu_torch"
-SOURCES = ("field.cu", "pairwise.cu")
+SOURCES = ("field.cu", "pairwise.cu", "phi_four.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +42,8 @@ SIGNATURES = {
     # partials, n, out, stream
     "mfm_reduce_sum": (_I, (_P, _I, _P, _P)),
     "mfm_pairwise_tile": (_I, ()),
+    # x, B, d, coef, inv4c, beta, pbc, bc_value, value, score (or NULL), stream
+    "mfm_phi_four": (_I, (_P, _I, _I, _F, _F, _F, _I, _F, _P, _P, _P)),
     "mfm_error_string": (_S, (_I,)),
 }
 

@@ -35,6 +35,16 @@ class IndepGaussian(Target):
         return self.mean + self.std * eps
 
 
+class FlatDistribution(Target):
+    """Improper flat density, log p == 0 (the 'flat' flow reference)."""
+
+    def __init__(self, dim: int = 1):
+        self.dim = dim
+
+    def log_lik(self, x):
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+
 class GaussianMixture(Target):
     """Mixture of diagonal-covariance Gaussians; ``covs`` holds per-dimension
     variances, shape (K, d)."""
@@ -69,6 +79,13 @@ class GaussianMixture(Target):
             shape + (self.dim,), generator=generator, device=self.modes.device
         )
         return self.modes[idx] + self.chol_covs[idx] * eps
+
+
+def bimodal_mixture(device=None) -> GaussianMixture:
+    """The 'bimodal' flow reference, ``mfm_tpu``'s ``GaussianMixture()``
+    default: modes (5, 5) and (0, 0), variances 0.5, weights 0.7 / 0.3."""
+    modes = torch.tensor([[5.0, 5.0], [0.0, 0.0]])
+    return GaussianMixture(modes, torch.full((2, 2), 0.5), torch.tensor([0.7, 0.3]), device)
 
 
 def four_mode_mixture(device=None) -> GaussianMixture:

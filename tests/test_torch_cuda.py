@@ -12,7 +12,9 @@ The first test builds the kernels with nvcc.
 Tolerances: K1 to 1e-4 relative to the output's largest entry -- fp32 sums
 of <= 256 products per output, in another order than cuBLAS's; K2a/K2b to
 1e-4 relative -- the kernel takes differences directly and reduces in
-fp64, the plain version takes Gram products in fp32 tiles.
+fp64, the plain version takes Gram products in fp32 tiles; K3 and its
+Hessian-vector product to 1e-5 relative -- fp32 sums of d terms in another
+order (warp shuffles), and the same per-site stencil.
 """
 
 import pytest
@@ -25,7 +27,7 @@ from mfm_tpu_torch.flows import (
     make_transport,
     module_tangent_field,
 )
-from mfm_tpu_torch.ops import field, pairwise
+from mfm_tpu_torch.ops import field, pairwise, phi_four
 from mfm_tpu_torch.targets import PhiFour, four_mode_mixture
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +172,68 @@ def test_fused_metrics_match_plain_statistics(cuda):
     assert abs(float(fv) - float(v)) <= RTOL * abs(float(v))
     # MMD^2 is a small difference of O(1) sums: absolute tolerance
     assert abs(float(pairwise.max_mean_disc_fused(X, Y)) - float(max_mean_disc(X, Y))) <= 1e-5
+
+
+@pytest.mark.parametrize("with_score", [True, False])
+@pytest.mark.parametrize("pbc,bc_value", [(False, 0.0), (False, 0.5), (True, 0.0)])
+@pytest.mark.parametrize("B,d", [(1001, 8), (1024, 64), (37, 1600)])
+def test_phi_four_kernel_matches_plain(cuda, B, d, pbc, bc_value, with_score):
+    gen = torch.Generator(device=cuda).manual_seed(B + d)
+    x = 1.5 * torch.randn((B, d), generator=gen, device=cuda)
+    before = phi_four.phi_four_value_and_score.launches
+    value, score = phi_four.phi_four_value_and_score(x, 0.1, 20.0, pbc, bc_value, with_score)
+    ref_v, ref_s = phi_four.phi_four_value_and_score_plain(x, 0.1, 20.0, pbc, bc_value)
+    torch.cuda.synchronize()
+    assert phi_four.phi_four_value_and_score.launches == before + 1
+    assert _rel_err(value, ref_v) <= 1e-5
+    if with_score:
+        assert _rel_err(score, ref_s) <= 1e-5
+    else:
+        assert score is None
+
+
+def test_phi_four_kernel_refuses_what_it_cannot_run(cuda):
+    x = torch.randn(8, 16, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        phi_four.phi_four_value_and_score(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        phi_four.phi_four_value_and_score(x.t())
+
+
+@pytest.mark.parametrize("bc,tilt", [(("dirichlet", 0.0), None),
+                                     (("pbc", 0.0), {"val": 0.3, "lambda": 2.0})])
+def test_phi_four_hvp_matches_autodiff(cuda, bc, tilt):
+    """The K3-backed score's tangent (the transport's vmap(jvp)) and
+    reverse mode through log_lik, against autodiff of the plain value."""
+    from torch.func import grad, jacrev, jvp, vmap
+
+    target = PhiFour(64, bc=bc, tilt=tilt)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = 1.5 * torch.rand((256, 64), generator=gen, device=cuda) - 0.75
+    ex = torch.randn((8, 256, 64), generator=gen, device=cuda)
+
+    def plain_log_lik(y):
+        v, _ = phi_four.phi_four_value_and_score_plain(y, 0.1, 20.0, bc[0] == "pbc", bc[1])
+        if tilt is not None:
+            v = v - 20.0 * tilt["lambda"] * (tilt["val"] - y.mean(-1)) ** 2 / (4.0 * 64)
+        return v
+
+    ref = vmap(lambda e: jvp(grad(lambda y: plain_log_lik(y).sum()), (x,), (e,))[1])(ex)
+    got = vmap(lambda e: jvp(target.score, (x,), (e,))[1])(ex)
+    assert _rel_err(got, ref) <= 1e-5
+    fwd_over_rev = vmap(lambda e: jvp(grad(lambda y: target.log_lik(y).sum()), (x,), (e,))[1])(ex)
+    assert _rel_err(fwd_over_rev, ref) <= 1e-5
+    rows = x[:4]
+    jac = vmap(jacrev(target.score))(rows)  # x batched: the op's vmap rule
+    assert _rel_err(jac, vmap(jacrev(grad(plain_log_lik)))(rows)) <= 1e-5
+
+
+def test_cuda_phi_four_launches_k3(cuda):
+    target = PhiFour(64)
+    x = torch.rand((128, 64), device=cuda)
+    counter = phi_four.phi_four_value_and_score
+    for call in (target.log_lik, target.score, target.value_and_score,
+                 lambda y: target.tempered_value_and_score(y, 0.5)):
+        before = counter.launches
+        call(x)
+        assert counter.launches == before + 1

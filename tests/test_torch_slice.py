@@ -184,8 +184,8 @@ def test_cli_refuses_unported_paths(argv, match):
 
 
 def test_unported_config_raises():
-    cfg = MFMConfig(**{**CFG, "field_precision": "default"})
-    with pytest.raises(NotImplementedError, match="bf16"):
+    cfg = MFMConfig(**{**CFG, "ref_dist": "prior"})
+    with pytest.raises(NotImplementedError, match="prior"):
         build_mfm(pt.PhiFour(D), cfg, "cpu", torch.Generator())
     cfg = MFMConfig(**{**CFG, "mcmc_kernel": "nuts"})
     with pytest.raises(NotImplementedError, match="mcmc_kernel"):

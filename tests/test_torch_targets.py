@@ -29,6 +29,8 @@ def _pairs():
          pt.PhiFour(8, bc=("pbc", 0.0), tilt={"val": 0.3, "lambda": 2.0}), 8, 1.0),
         ("stdgauss", jt.IndepGaussian(3), pt.IndepGaussian(3), 3, 1.0),
         ("widegauss", jt.IndepGaussian(3, var=5.0), pt.IndepGaussian(3, var=5.0), 3, 2.0),
+        ("bimodal", jt.GaussianMixture(), pt.bimodal_mixture(), 2, 3.0),
+        ("flat", jt.FlatDistribution(3), pt.FlatDistribution(3), 3, 1.0),
     ]
 
 
@@ -78,4 +80,4 @@ def test_samplers_and_init_positions():
 def test_make_ref_dist():
     assert isinstance(pt.make_ref_dist("stdgauss", 3), pt.IndepGaussian)
     with pytest.raises(NotImplementedError, match="not ported"):
-        pt.make_ref_dist("phifour", 3)
+        pt.make_ref_dist("prior", 3)

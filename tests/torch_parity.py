@@ -48,11 +48,12 @@ def flax_field(key, dim=4, width=16, fourier=8, act="relu", score_fn=None,
     return net, params, freqs
 
 
-def torch_field(params, freqs, dim=4, width=16, act="relu", score_fn=None, score_clip=None):
+def torch_field(params, freqs, dim=4, width=16, act="relu", score_fn=None, score_clip=None,
+                precision="highest"):
     """The port's net and parameter dict carrying the flax parameters."""
     net = VectorFieldNet(
         dim, tt(freqs), (width, width), (width, width), (width, width), act=act,
-        score_fn=score_fn, score_clip=score_clip,
+        score_fn=score_fn, score_clip=score_clip, precision=precision,
     )
     state = params_from_flax(jax.tree_util.tree_map(np.asarray, params), np.asarray(freqs))
     net.load_state_dict(state)

@@ -5,15 +5,18 @@
     python3 tools/profile_slice.py --device cpu --set num_chain=8 \\
         --set dim=4 --set ode_steps=2 ...       # a dry run of the script
 
-Builds the phi-four slice as chip_smoke.py runs it (the ``phi-four``
-preset with field_precision=highest and pallas_field=true) with
-``build_mfm``, at its initial carry, and prints two JSON lines:
+Builds the phi-four slice with ``build_mfm``, at its initial carry: the
+``phi-four`` preset with field_precision=highest and pallas_field=true
+(the fused field kernel) unless ``--set`` says otherwise;
+``--set field_precision=default --set pallas_field=false`` profiles the
+preset as shipped (the bf16 nn.Module field). It prints two JSON lines:
 
 1. ``pieces``: host-clock ms per call, after a warm call, over ``--reps``
    calls that end in a device synchronisation: a MALA-type and a flow-type
    ``step_fn``, one forward transport, one RK4 stage with the exact
-   divergence and its parts (K1 with d tangents, the score, the score-gate
-   JVP), the FM loss gradient, AdamW, and the tempering bisection;
+   divergence and its parts (K1 with d tangents, whichever field the run
+   uses; the score, the score-gate JVP), the FM loss gradient, AdamW, and
+   the tempering bisection;
 2. ``profiled``: for ``--mala-steps`` MALA-type iterations and for one
    flow-type iteration under ``torch.profiler``, the wall time of the
    profiled region, the device-busy time inside it (the union of the
@@ -114,7 +117,8 @@ def main():
             capture_output=True, text=True, check=True,
         ).stdout.strip(), flush=True)
 
-    cfg = preset("phi-four", field_precision="highest", pallas_field=True, **_parse_set(args.set))
+    overrides = {"field_precision": "highest", "pallas_field": True, **_parse_set(args.set)}
+    cfg = preset("phi-four", **overrides)
     cfg.seed = 0
     target = PhiFour(cfg.dim)
     pieces = build_mfm(target, cfg, device, torch.Generator().manual_seed(0))
@@ -125,7 +129,8 @@ def main():
                       if not _interleave_is_flow(c, cfg.mcmc_per_flow_steps))
     noise = {c: pieces.draw_step_noise(gen, c) for c in (mala_count, flow_count)}
     print(f"cfg B={cfg.num_chain} d={cfg.dim} widths={tuple(cfg.hidden_xt)} "
-          f"F={cfg.fourier_dim} ode_steps={cfg.ode_steps} {cfg.divergence}", flush=True)
+          f"F={cfg.fourier_dim} ode_steps={cfg.ode_steps} {cfg.divergence} "
+          f"field_precision={cfg.field_precision} pallas_field={cfg.pallas_field}", flush=True)
 
     params = carry.train.params
     x = carry.chain.position.contiguous()
