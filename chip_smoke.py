@@ -13,7 +13,10 @@ own; any failure exits non-zero before the final line:
    relu, every parameter perturbed so the heads are non-zero), K2a at
    (1024, 64) and (12800, 2), K2b at (12800, 2), K3 (value and score) at
    (1024, 64) Dirichlet, (1024, 64) periodic and (37, 64) with the ends at
-   0.5; errors and CUDA-event times of kernel and plain version;
+   0.5; errors and CUDA-event times of kernel and plain version, and each
+   kernel's bound (the larger of its operations over the card's peak rate
+   and its bytes over the memory rate); K1's achieved TFLOP/s and its share
+   of the fp32 FMA bound and of the 3xTF32 tensor-core bound;
 4. one forward + inverse transport through the kernel against the same
    transport through the nn.Module (torch.func.jvp), B=1024, d=64, with the
    phi-four score gate: x, u and logdet; the K3-backed score's tangent over
@@ -44,6 +47,20 @@ import shutil
 import subprocess
 import sys
 import time
+
+
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, TF32 in them
+# (dense), HBM3. Every bound below is the larger of operations / peak and
+# bytes / memory rate, for this run's shapes.
+FP32_PEAK = 67e12
+TF32_PEAK = 495e12
+HBM_RATE = 3.35e12
+
+
+def bound(flops, nbytes, peak=FP32_PEAK):
+    """(bound_ms, bound_by) of ``flops`` operations moving ``nbytes``."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def fail(msg: str):
@@ -103,7 +120,7 @@ def phase_build():
     secs = time.perf_counter() - t0
     log = (lib_path.parent / "build.log").read_text()
     usage = [l.split("ptxas info    :")[-1].strip() for l in log.splitlines()
-             if "Used" in l and "registers" in l]
+             if ("Used" in l and "registers" in l) or "spill" in l]
     print(f"[2 build] {secs:.1f} s -> {lib_path}; ptxas: {' | '.join(usage)}", flush=True)
 
 
@@ -142,8 +159,9 @@ def phase_kernels(torch, report):
     t = torch.rand(B, generator=gen, device=dev)
     ex = torch.randn((K, B, d), generator=gen, device=dev)
 
-    # fp32 sums of <= 256 products per output, in another order than
-    # cuBLAS's: agreement to ~1e-5 relative; the bound leaves headroom
+    # sums of <= 256 products per output in three TF32 passes (3xTF32, as
+    # close to fp64 as cuBLAS's fp32, ~5e-7), in another order: agreement
+    # to ~1e-6 relative; the tolerance leaves headroom
     tol_k1 = 1e-4
     kern = lambda: field.field_apply(packed, layout, "relu", freqs, x, t)
     plain = lambda: field.field_apply_plain(packed, layout, "relu", freqs, x, t)
@@ -151,8 +169,10 @@ def phase_kernels(torch, report):
     torch.cuda.synchronize()
     err_p = max(errors(torch, f_k, f_p), errors(torch, g_k, g_p))
     ms_p, plain_ms_p = cuda_ms(torch, kern, 50), cuda_ms(torch, plain, 50)
+    bound_p, by_p = bound(field.field_flops(layout, B, 0), field.field_bytes(layout, B, 0))
     print(f"[3 K1 primal B={B} d={d}] max abs {err_p[0]:.3e} rel {err_p[1]:.3e} "
-          f"(tol rel {tol_k1}); kernel {ms_p:.4f} ms, plain {plain_ms_p:.4f} ms", flush=True)
+          f"(tol rel {tol_k1}); kernel {ms_p:.4f} ms, plain {plain_ms_p:.4f} ms, "
+          f"bound {bound_p:.4f} ms ({by_p})", flush=True)
     if not err_p[1] <= tol_k1:
         fail("K1 primal disagrees with its plain version")
 
@@ -161,14 +181,29 @@ def phase_kernels(torch, report):
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
     err_t = max(errors(torch, a, b) for a, b in zip(out_k, out_p))
-    ms_t, plain_ms_t = cuda_ms(torch, kern, 20), cuda_ms(torch, plain, 20)
+    # plain, kernel, kernel, plain: the two versions compared in turns
+    plain_a, ms_a = cuda_ms(torch, plain, 20), cuda_ms(torch, kern, 20)
+    ms_b, plain_b = cuda_ms(torch, kern, 20), cuda_ms(torch, plain, 20)
+    ms_t, plain_ms_t = min(ms_a, ms_b), min(plain_a, plain_b)
+    flops, nbytes = field.field_flops(layout, B, K), field.field_bytes(layout, B, K)
+    bound_t, by_t = bound(flops, nbytes)
+    bound_tc = bound(3 * flops, nbytes, TF32_PEAK)[0]
     print(f"[3 K1 tangents K={K} B={B} d={d}] max abs {err_t[0]:.3e} rel {err_t[1]:.3e} "
-          f"(tol rel {tol_k1}); kernel {ms_t:.4f} ms, plain {plain_ms_t:.4f} ms", flush=True)
+          f"(tol rel {tol_k1}); kernel {ms_t:.4f} ms, plain {plain_ms_t:.4f} ms "
+          f"(kernel {ms_a:.4f} / {ms_b:.4f}, plain {plain_a:.4f} / {plain_b:.4f})", flush=True)
+    print(f"[3 K1 work K={K}] {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB: "
+          f"{flops / ms_t / 1e9:.1f} TFLOP/s; bound {bound_t:.4f} ms at the fp32 FMA peak "
+          f"({by_t}), share {bound_t / ms_t:.3f}; 3xTF32 bound {bound_tc:.4f} ms, share "
+          f"{bound_tc / ms_t:.3f}; bytes alone {nbytes / HBM_RATE * 1e3:.4f} ms", flush=True)
     if not err_t[1] <= tol_k1:
         fail("K1 with tangents disagrees with its plain version")
+    if not ms_t < plain_ms_t:
+        fail("K1 with tangents is slower than its plain version")
     report["field_apply"] = dict(
         max_abs_err=max(err_p[0], err_t[0]), max_rel_err=max(err_p[1], err_t[1]),
-        ms=ms_t, plain_ms=plain_ms_t,
+        ms=ms_t, plain_ms=plain_ms_t, bound_ms=bound_t, bound_by=by_t, library_ms=None,
+        flops=flops, share_of_bound=bound_t / ms_t, bound_3xtf32_ms=bound_tc,
+        primal_ms=ms_p, primal_plain_ms=plain_ms_p, primal_bound_ms=bound_p,
         shape=f"B={B} d={d} K={K} widths={W} F={F}",
     )
 
@@ -188,14 +223,19 @@ def phase_kernels(torch, report):
         plain = lambda: pairwise.stein_pairwise_sum_plain(X, S)
         err = errors(torch, kern(), plain())
         ms, plain_ms = cuda_ms(torch, kern, 5), cuda_ms(torch, plain, 5)
+        # per pair: four length-D dot products (x.x, s.x, x.s, s.s) and ~20
+        # scalar operations for the IMQ terms
+        bnd, by = bound(T * T * (8 * D + 20), 4 * 2 * T * D + 8)
         print(f"[3 K2a T={T} d={D}] abs {err[0]:.3e} rel {err[1]:.3e} (tol rel {tol_k2}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})",
+              flush=True)
         if not err[1] <= tol_k2:
             fail(f"K2a at ({T}, {D}) disagrees with its plain version")
         prev = report.get(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         report[name] = dict(max_abs_err=max(prev["max_abs_err"], err[0]),
                             max_rel_err=max(prev["max_rel_err"], err[1]), ms=ms,
-                            plain_ms=plain_ms, shape=f"T={T} d={D}")
+                            plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+                            shape=f"T={T} d={D}")
 
     A = four.sample(gen, (12800,)).contiguous()
     Bm = four.sample(gen, (12800,)).contiguous()
@@ -203,12 +243,16 @@ def phase_kernels(torch, report):
     plain = lambda: pairwise.rbf_kernel_sum_plain(A, Bm)
     err = errors(torch, kern(), plain())
     ms, plain_ms = cuda_ms(torch, kern, 5), cuda_ms(torch, plain, 5)
+    # per pair: a squared distance over d=2 (3 operations a dimension), a
+    # scale and an exp
+    bnd, by = bound(12800 * 12800 * (3 * 2 + 3), 4 * 2 * 12800 * 2 + 8)
     print(f"[3 K2b T=12800 d=2] abs {err[0]:.3e} rel {err[1]:.3e} (tol rel {tol_k2}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
     if not err[1] <= tol_k2:
         fail("K2b disagrees with its plain version")
     report["rbf_kernel_sum"] = dict(max_abs_err=err[0], max_rel_err=err[1], ms=ms,
-                                    plain_ms=plain_ms, shape="Ta=Tb=12800 d=2")
+                                    plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                                    library_ms=None, shape="Ta=Tb=12800 d=2")
 
     # K3: value and score are fp32 sums of d terms (warp shuffles against
     # torch's reduction) and one stencil per site; 1e-5 relative to each
@@ -226,15 +270,19 @@ def phase_kernels(torch, report):
         torch.cuda.synchronize()
         err = max(errors(torch, v_k, v_p), errors(torch, s_k, s_p))
         ms, plain_ms = cuda_ms(torch, kern, 50), cuda_ms(torch, plain, 50)
+        # ~16 operations a site for the value and the score; x read once,
+        # the value and the score written once
+        bnd, by = bound(16 * B3 * D3, 4 * (2 * B3 * D3 + B3))
         print(f"[3 K3 B={B3} d={D3} {'pbc' if pbc else f'dirichlet {bc}'}] max abs {err[0]:.3e} "
-              f"rel {err[1]:.3e} (tol rel {tol_k3}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-              flush=True)
+              f"rel {err[1]:.3e} (tol rel {tol_k3}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bnd:.6f} ms ({by})", flush=True)
         if not (err[1] <= tol_k3 and no_score is None and torch.equal(v_only, v_k)):
             fail(f"K3 at ({B3}, {D3}) pbc={pbc} bc={bc} disagrees with its plain version")
         k3 = dict(max_abs_err=max(k3["max_abs_err"], err[0]),
                   max_rel_err=max(k3["max_rel_err"], err[1]),
                   ms=k3.get("ms", ms), plain_ms=k3.get("plain_ms", plain_ms),
-                  shape="B=1024 d=64 dirichlet, value and score")
+                  bound_ms=k3.get("bound_ms", bnd), bound_by=k3.get("bound_by", by),
+                  library_ms=None, shape="B=1024 d=64 dirichlet, value and score")
     report["phi_four_value_and_score"] = k3
 
 

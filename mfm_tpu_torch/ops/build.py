@@ -32,9 +32,8 @@ _F = ctypes.c_float
 _S = ctypes.c_char_p
 # (restype, argtypes) of every exported C function, in csrc's order
 SIGNATURES = {
-    # packed, meta (host int*), freqs, x, t, ex, field, gate, dfield,
-    # B, K, TB, KC, stream
-    "mfm_field_apply": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # packed, meta (host int*), freqs, x, t, ex, field, gate, dfield, B, K, stream
+    "mfm_field_apply": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P)),
     # X, S, T, d, b, per-tile partials, stream
     "mfm_stein_partials": (_I, (_P, _P, _I, _I, _F, _P, _P)),
     # A, Ta, B, Tb, d, inv2s2, per-tile partials, stream

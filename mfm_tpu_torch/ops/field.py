@@ -9,22 +9,28 @@ the same weights. The score gate is added by the caller.
 On a CPU tensor the wrapper runs ``field_apply_plain``; on a CUDA tensor it
 launches ``csrc/field.cu`` or raises. The kernel is forward only: it raises
 on inputs that require grad (training differentiates the ``nn.Module``).
+
+The kernel streams the weights in tiles of ``TILE_ROWS`` rows in the order
+it consumes them; ``weight_tiles`` builds that schedule and ``kernel_meta``
+the struct that carries it, once per (layout, activation).
+``field_flops`` and ``field_bytes`` count one call's work.
 """
 
 import ctypes
+import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from mfm_tpu_torch.ops import build
 
 ACTIVATIONS = ("relu", "tanh")
-MAX_WIDTH = 128  # output columns per layer a block covers (16 x 8 per thread)
+MAX_WIDTH = 128  # output columns per layer a block covers (16 mma tiles of 8)
 MAX_FOURIER = 128
 MAX_LAYERS = 16
-MAX_ROWS = 80  # primal + tangent rows per block (16 x 5 per thread)
-MAX_TANGENTS_PER_BLOCK = 8
+TILE_ROWS = 64  # weight rows per streamed tile: kKS of csrc/field.cu
+MAX_TILES = 144  # primal tiles + one chunk's tiles: kMaxTiles
 
 
 class FieldLayout(NamedTuple):
@@ -48,14 +54,6 @@ class FieldLayout(NamedTuple):
     k_in: Tuple[int, ...]
     n_out: Tuple[int, ...]
     size: int
-
-    def meta_array(self, act: str):
-        """The ``FieldMeta`` struct of csrc/field.cu as a C int array."""
-        pad = lambda v: list(v) + [0] * (MAX_LAYERS - len(v))
-        ints = [self.n_t, self.n_x, self.n_xt, self.F, self.d,
-                ACTIVATIONS.index(act), self.wt_off, self.ht, self.max_w, self.max_t]
-        ints += pad(self.w_off) + pad(self.b_off) + pad(self.k_in) + pad(self.n_out)
-        return (ctypes.c_int * len(ints))(*ints)
 
 
 def _layer_names(params: dict, trunk: str):
@@ -164,6 +162,35 @@ def field_apply_plain(packed, layout: FieldLayout, act: str, freqs, x, t, ex=Non
     return field, gate, dh @ wf
 
 
+def _matrix_tiles(off: int, k: int, n: int) -> List[Tuple[int, int, int]]:
+    """(offset, rows, n) of each TILE_ROWS-row slice of a (k, n) matrix."""
+    return [(off + k0 * n, min(TILE_ROWS, k - k0), n) for k0 in range(0, k, TILE_ROWS)]
+
+
+def weight_tiles(layout: FieldLayout):
+    """The kernel's weight schedule: (primal tiles, tiles of one tangent
+    chunk), in the order ``field_kernel`` multiplies the matrices -- the
+    t-trunk, the gate head, the x-trunk, the joint trunk (its first layer's
+    x-half, then its t-half), the field head; then, for every chunk of
+    tangents, the x-trunk, the joint trunk (x-halves only) and the field
+    head."""
+    L = layout
+    mat = lambda l, n=None: _matrix_tiles(L.w_off[l], L.k_in[l], L.n_out[l] if n is None else n)
+    n_h = L.n_x + L.n_xt
+    gate, head = L.n_t + n_h, L.n_t + n_h + 1
+    primal = [tile for l in range(L.n_t) for tile in mat(l)] + mat(gate, L.d)
+    chunk = []
+    for h in range(n_h):
+        l = L.n_t + h
+        primal += mat(l)
+        if h == L.n_x:
+            primal += _matrix_tiles(L.wt_off, L.ht, L.n_out[l])
+        chunk += mat(l)
+    primal += mat(head, L.d)
+    chunk += mat(head, L.d)
+    return primal, chunk
+
+
 def check_fits(layout: FieldLayout) -> None:
     """Raise if the field is wider than the kernel takes."""
     n_layers = layout.n_t + layout.n_x + layout.n_xt + 2
@@ -175,12 +202,54 @@ def check_fits(layout: FieldLayout) -> None:
             f"{MAX_FOURIER} Fourier features; got widths {layout.n_out}, "
             f"F={layout.F}"
         )
+    n_tiles = sum(map(len, weight_tiles(layout)))
+    if n_tiles > MAX_TILES:
+        raise ValueError(f"fused field streams at most {MAX_TILES} weight tiles, got {n_tiles}")
 
 
-def block_shape(n_tangents: int) -> Tuple[int, int]:
-    """(rows TB, tangents KC) per block: R = TB * (1 + KC) <= MAX_ROWS."""
-    kc = min(n_tangents, MAX_TANGENTS_PER_BLOCK)
-    return min(16, MAX_ROWS // (1 + kc)), kc
+def _stride(width: int, pad: int) -> int:
+    """A shared-memory row stride >= width whose fragment loads hit 32
+    distinct banks: a multiple of 32 plus ``pad`` (4 for activations, read
+    8 rows x 4 columns; 8 for weights, read 4 rows x 8 columns)."""
+    return -(-width // 32) * 32 + pad
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_meta(layout: FieldLayout, act: str):
+    """The ``FieldMeta`` struct of csrc/field.cu as a C int array, built
+    once per (layout, activation)."""
+    check_fits(layout)
+    primal, chunk = weight_tiles(layout)
+    pad = lambda v, n: list(v) + [0] * (n - len(v))
+    tiles = primal + chunk + [(0, 0, 0)] * (MAX_TILES - len(primal) - len(chunk))
+    ints = [layout.n_t, layout.n_x, layout.n_xt, layout.F, layout.d, ACTIVATIONS.index(act),
+            layout.wt_off, layout.ht, _stride(layout.max_w, 4), _stride(layout.max_t, 4),
+            _stride(max(layout.n_out), 8), len(primal), len(chunk)]
+    for v in (layout.w_off, layout.b_off, layout.k_in, layout.n_out):
+        ints += pad(v, MAX_LAYERS)
+    for i in range(3):
+        ints += [tile[i] for tile in tiles]
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+def field_flops(layout: FieldLayout, B: int, K: int) -> int:
+    """Floating-point operations of one call (2 per multiply-add of the
+    products; biases, activations and Fourier features not counted): the
+    primal through every layer, and each of the K tangents through the
+    x-trunk, the joint trunk's x-halves and the field head."""
+    n_h = layout.n_x + layout.n_xt
+    joint = layout.n_t + layout.n_x
+    macs = [k * n for k, n in zip(layout.k_in, layout.n_out)]
+    primal = sum(macs) + layout.ht * layout.n_out[joint]
+    tangent = sum(macs[layout.n_t : layout.n_t + n_h]) + macs[-1]
+    return 2 * B * (primal + K * tangent)
+
+
+def field_bytes(layout: FieldLayout, B: int, K: int) -> int:
+    """Bytes one call must move: x, t, the frequencies, the packed weights
+    and ex read once; field, gate and dfield written once (fp32)."""
+    d = layout.d
+    return 4 * (B * d + B + layout.F + layout.size + K * B * d + 2 * B * d + K * B * d)
 
 
 def field_apply(
@@ -199,7 +268,7 @@ def field_apply(
         return field_apply_plain(packed, layout, act, freqs, x, t, ex)
     if x.device.type != "cuda":
         raise ValueError(f"field_apply: unsupported device {x.device}")
-    check_fits(layout)
+    meta = kernel_meta(layout, act)  # raises if the kernel cannot take the field
     B, d = x.shape
     K = 0 if ex is None else ex.shape[0]
     tensors = {"packed": packed, "freqs": freqs, "x": x, "t": t}
@@ -217,14 +286,12 @@ def field_apply(
     field = torch.empty_like(x)
     gate = torch.empty_like(x)
     dfield = torch.empty((K, B, d), device=x.device) if K else None
-    tb, kc = block_shape(K)
-    meta = layout.meta_array(act)  # kept alive across the call
     lib = build.load_library()
     err = lib.mfm_field_apply(
         packed.data_ptr(), ctypes.addressof(meta),
         freqs.data_ptr(), x.data_ptr(), t.data_ptr(),
         ex.data_ptr() if K else None, field.data_ptr(), gate.data_ptr(),
-        dfield.data_ptr() if K else None, B, K, tb, kc,
+        dfield.data_ptr() if K else None, B, K,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "field_apply")

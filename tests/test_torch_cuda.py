@@ -9,8 +9,12 @@ file imports no JAX, so it runs on a GPU machine without it:
 (``--noconftest``: ``tests/conftest.py`` configures JAX for the CPU suite.)
 The first test builds the kernels with nvcc.
 
-Tolerances: K1 to 1e-4 relative to the output's largest entry -- fp32 sums
-of <= 256 products per output, in another order than cuBLAS's; K2a/K2b to
+Tolerances: K1 to 1e-4 relative to the output's largest entry -- sums of
+<= 256 products per output in three TF32 passes (3xTF32, ~5e-7 relative
+to fp64 on the card, as cuBLAS's fp32; tests/test_torch_field.py emulates
+the split), in another order than cuBLAS's; a relu unit whose z lies
+within ~1e-7 of 0 may take the other side of the kink, which these seeds
+do not meet; K2a/K2b to
 1e-4 relative -- the kernel takes differences directly and reduces in
 fp64, the plain version takes Gram products in fp32 tiles; K3 and its
 Hessian-vector product to 1e-5 relative -- fp32 sums of d terms in another
@@ -68,6 +72,8 @@ def _net(dev, dim, width, n_fourier, act="relu", score_fn=None, gate_scale=0.05,
 @pytest.mark.parametrize("B,d,width,n_fourier,K", [
     (1024, 64, 128, 128, 64),  # the phi-four slice, exact divergence
     (1000, 64, 128, 128, 0),   # primal only, a ragged last row tile
+    (1000, 64, 128, 128, 63),  # ragged rows and a ragged last tangent chunk
+    (1024, 64, 128, 128, 1),   # one Hutchinson probe at the slice's width
     (37, 5, 24, 6, 13),        # ragged rows and tangent chunks, odd widths
 ])
 def test_field_kernel_matches_plain(cuda, act, B, d, width, n_fourier, K):

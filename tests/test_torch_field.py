@@ -126,7 +126,16 @@ def test_layout_and_limits():
     K1.check_fits(layout)
     with pytest.raises(ValueError, match="widths"):
         K1.check_fits(K1.field_layout(wide, F))
-    assert K1.block_shape(64) == (8, 8) and K1.block_shape(0) == (16, 0)
+    # the kernel's weight schedule streams, in TILE_ROWS-row tiles, every
+    # weight of the primal once and of each tangent chunk once
+    primal, chunk = K1.weight_tiles(layout)
+    assert all(0 < rows <= K1.TILE_ROWS for _, rows, _ in primal + chunk)
+    assert sum(rows * n for _, rows, n in primal) * 2 == K1.field_flops(layout, 1, 0)
+    assert sum(rows * n for _, rows, n in chunk) * 2 == (
+        K1.field_flops(layout, 1, 1) - K1.field_flops(layout, 1, 0))
+    assert primal[0] == (0, min(K1.TILE_ROWS, 2 * F), W) and primal[-1][0] + primal[-1][1] * D == (
+        layout.b_off[-1])
+    assert len(K1.kernel_meta(layout, "tanh")) == 13 + 4 * K1.MAX_LAYERS + 3 * K1.MAX_TILES
     with pytest.raises(ValueError, match="activations"):
         K1.field_apply(packed, layout, "gelu", tt(freqs), *map(tt, _inputs(0)[:2]))
 
@@ -139,3 +148,56 @@ def test_cpu_tensors_take_the_plain_version():
     x, t, _ = _inputs(3)
     K1.field_apply(K1.pack_field_params(pparams, layout), layout, "relu", tt(freqs), tt(x), tt(t))
     assert K1.field_apply.launches == before
+
+
+def _slice_layout():
+    """The phi-four slice's field: d=64, trunks (128, 128) x 3, F=128."""
+    from mfm_tpu_torch.flows import VectorFieldNet, field_params
+
+    gen = torch.Generator().manual_seed(0)
+    net = VectorFieldNet(64, torch.randn(128, generator=gen), (128, 128), (128, 128),
+                         (128, 128), generator=gen)
+    return K1.field_layout(field_params(net), 128)
+
+
+def test_field_work_matches_the_hand_count():
+    """Per row: primal 139,264 multiply-adds (t-trunk 49,152, x-trunk
+    24,576, joint 49,152, heads 8,192 each), each tangent 65,536; at
+    B=1024, K=64 that is 8.875 GFLOP and ~34.9 MB."""
+    layout = _slice_layout()
+    assert K1.field_flops(layout, 1024, 0) == 2 * 1024 * 139_264
+    assert K1.field_flops(layout, 1024, 64) == 2 * 1024 * (139_264 + 64 * 65_536)
+    assert abs(K1.field_flops(layout, 1024, 64) / 8.875e9 - 1) < 1e-4
+    weights = 139_264 + 6 * 128 + 2 * 64  # matrices and biases
+    assert layout.size == weights
+    expected = 4 * (2 * 64 * 1024 * 64 + 3 * 1024 * 64 + 1024 + 128 + weights)
+    assert K1.field_bytes(layout, 1024, 64) == expected
+    assert abs(expected / 34.9e6 - 1) < 2e-3
+    assert K1.field_bytes(layout, 1024, 0) == 4 * (3 * 1024 * 64 + 1024 + 128 + weights)
+
+
+def _tf32(v):
+    """TF32 as csrc/field.cu rounds: add half a TF32 ulp to the fp32 bits,
+    then mask the low 13 mantissa bits."""
+    return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_3xtf32_product_is_fp32_accurate():
+    """The kernel's 3xTF32 split on one 128 x 128 product at the slice's
+    scale: hi = tf32(v), lo = tf32(v - hi), hi*hi + hi*lo + lo*hi with fp32
+    sums, against float64. It stays within 1e-5 of the largest entry (the
+    1e-4 tolerance of the card tests has headroom), where one TF32 pass
+    does not. (The card's tensor cores also truncate their accumulation,
+    which the kernel bounds by short chains; see csrc/field.cu.)"""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(np.maximum(rng.standard_normal((128, 128)), 0).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((128, 128)) / np.sqrt(128)).astype(np.float32))
+    ref = a.double() @ w.double()
+    a_hi, w_hi = _tf32(a), _tf32(w)
+    a_lo, w_lo = _tf32(a - a_hi), _tf32(w - w_hi)
+    three = a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi
+    one = a_hi @ w_hi
+    scale = float(ref.abs().max())
+    err3 = float((three.double() - ref).abs().max()) / scale
+    err1 = float((one.double() - ref).abs().max()) / scale
+    assert err3 <= 1e-5 and err1 > 1e-4, (err3, err1)
