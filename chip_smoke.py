@@ -13,17 +13,22 @@ own; any failure exits non-zero before the final line:
    relu, every parameter perturbed so the heads are non-zero), K2a at
    (1024, 64) and (12800, 2), K2b at (12800, 2), K3 (value and score) at
    (1024, 64) Dirichlet, (1024, 64) periodic and (37, 64) with the ends at
-   0.5; errors and CUDA-event times of kernel and plain version, and each
-   kernel's bound (the larger of its operations over the card's peak rate
-   and its bytes over the memory rate); K1's achieved TFLOP/s and its share
-   of the fp32 FMA bound and of the 3xTF32 tensor-core bound;
-4. one forward + inverse transport through the kernel against the same
-   transport through the nn.Module (torch.func.jvp), B=1024, d=64, with the
-   phi-four score gate: x, u and logdet; the K3-backed score's tangent over
-   the 64 basis vectors against jvp(grad(...)) of an autodiff stencil that
-   shares no code with it, B=1024, d=64, with both times; then, with a
-   large gate, the kernel path's divergence against the trace of the
-   autograd Jacobian of the whole field (score gate included), B=16, d=64;
+   0.5, and K3 through PhiFour.value_and_score; the phi-four score gate
+   with 64 tangents at (1024, 64) Dirichlet, periodic, tilted, and clipped
+   at (37, 64), timed with its inputs cold in the L2 (and warm) and its
+   launches queued behind a spin (device time, not host dispatch); errors
+   and CUDA-event times of kernel and plain version, and each kernel's bound (the larger of its operations over the card's
+   peak rate and its bytes over the memory rate); K1's achieved TFLOP/s
+   and its share of the fp32 FMA bound and of the 3xTF32 tensor-core bound;
+4. one forward + inverse transport through K1 against the same transport
+   through the nn.Module (torch.func.jvp), B=1024, d=64, both with
+   PhiFour's fused score gate: x, u and logdet; the fused score gate of a
+   stage against the generic route (vmap(jvp) of the K3-backed score), and
+   that score's tangent over the 64 basis vectors against jvp(grad(...))
+   of an autodiff stencil that shares no code with it, B=1024, d=64, with
+   the times; then, with a large gate, each path's divergence against the
+   trace of the autograd Jacobian of the whole field (score gate
+   included), B=16, d=64;
 5. the phi-four preset as shipped, through mfm_tpu_torch.cli.main (d=64,
    1024 chains, 128-wide trunks, the bf16 field, exact divergence, 24 RK4
    steps, PhiFour on K3, 500 iterations), with the ESS of the final IS
@@ -43,6 +48,7 @@ package beside this file, it exits non-zero and prints no result.
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -68,13 +74,18 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, queued: bool = False) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` launches, after a warm
-    call."""
+    call. A small kernel called back to back can be paced by its host
+    dispatch; ``queued`` first holds the stream in a spin of ~0.5 ms a rep,
+    so that the host has queued every launch before the first one starts
+    and the events see device time only."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(reps * 1_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -111,6 +122,15 @@ def phase_device(torch):
     return card
 
 
+def kernel_name(mangled: str) -> str:
+    """``phi_four_score_gate_kernel<4,1>`` from its mangled name."""
+    m = re.search(r"\d([a-z][a-z_]*kernel)(I(?:Li\d+E)+E)?", mangled)
+    if m is None:
+        return mangled
+    values = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(values)}>" if values else "")
+
+
 def phase_build():
     from mfm_tpu_torch.ops import build
 
@@ -119,22 +139,29 @@ def phase_build():
     build.load_library()
     secs = time.perf_counter() - t0
     log = (lib_path.parent / "build.log").read_text()
-    usage = [l.split("ptxas info    :")[-1].strip() for l in log.splitlines()
-             if ("Used" in l and "registers" in l) or "spill" in l]
+    usage, name = [], "?"
+    for line in log.splitlines():  # ptxas -v: each entry's name, then its usage
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+        elif "spill" in line or ("Used" in line and "registers" in line):
+            usage.append(f"{name}: {line.split('ptxas info    :')[-1].strip()}")
     print(f"[2 build] {secs:.1f} s -> {lib_path}; ptxas: {' | '.join(usage)}", flush=True)
 
 
-def perturbed_net(torch, dim, width, n_fourier, score_fn, seed=0, gate_scale=0.05):
+def perturbed_net(torch, dim, width, n_fourier, target, seed=0, gate_scale=0.05):
     """A net with every parameter perturbed (zero heads would hide a head
-    bug); ``gate_scale`` sizes the gate head's perturbation, which a stiff
-    score (phi-four's is O(100)) needs small for the ODE to stay stable."""
+    bug), with ``target``'s score gate (fused for PhiFour) or none;
+    ``gate_scale`` sizes the gate head's perturbation, which a stiff score
+    (phi-four's is O(100)) needs small for the ODE to stay stable."""
     from mfm_tpu_torch.flows import VectorFieldNet, field_params
 
     gen = torch.Generator().manual_seed(seed)
     freqs = torch.randn(n_fourier, generator=gen)
     net = VectorFieldNet(
         dim, freqs, (width, width), (width, width), (width, width), act="relu",
-        score_fn=score_fn, generator=gen,
+        score_fn=target and target.score, score_gate=target and target.score_gate,
+        generator=gen,
     )
     params = {
         k: v + (gate_scale if k.startswith("gate_head") else 0.05)
@@ -283,7 +310,92 @@ def phase_kernels(torch, report):
                   ms=k3.get("ms", ms), plain_ms=k3.get("plain_ms", plain_ms),
                   bound_ms=k3.get("bound_ms", bnd), bound_by=k3.get("bound_by", by),
                   library_ms=None, shape="B=1024 d=64 dirichlet, value and score")
+    # the same launch through the target, as MALA calls it (the launcher
+    # straight, no custom op): back to back, this is its host time
+    x = 1.5 * torch.randn((1024, 64), generator=gen, device=dev)
+    target = PhiFour(64)
+    k3["target_ms"] = cuda_ms(torch, lambda: target.value_and_score(x), 200)
+    k3["launcher_ms"] = cuda_ms(torch, lambda: phi_four.phi_four_value_and_score(x), 200)
+    print(f"[3 K3 back to back B=1024 d=64] PhiFour.value_and_score {k3['target_ms']:.4f} ms, "
+          f"phi_four_value_and_score {k3['launcher_ms']:.4f} ms", flush=True)
     report["phi_four_value_and_score"] = k3
+    phase_score_gate(torch, report, gen)
+
+
+L2_BYTES = 50 * 2**20  # the H100's L2
+
+
+def phase_score_gate(torch, report, gen):
+    """The fused score gate against its plain version, both in place on
+    their own copies of field and dfield. Timed cold: each launch takes the
+    next of enough copies of its inputs to overflow the L2 twice, so its
+    bytes come from HBM, as the bound counts them; and warm, back to back
+    on one copy (the L2 then holds most of a slice-sized working set)."""
+    from mfm_tpu_torch.ops import phi_four
+
+    dev = torch.device("cuda")
+    K = 64
+    # fp32 sums of three terms per score and per H e entry, in another
+    # order: 1e-5 relative to each output's largest entry (as K3)
+    tol = 1e-5
+    cases = [  # (label, B, d, kwargs); the first is the main path's
+        ("dirichlet", 1024, 64, {}),
+        ("pbc", 1024, 64, {"pbc": True}),
+        ("tilt", 1024, 64, {"bc_value": 0.5, "tilt_lambda": 2.0, "tilt_val": 0.3}),
+        ("clip", 37, 64, {"clip": 60.0}),
+    ]
+    out = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for label, B, d, kw in cases:
+        x = 2.0 * torch.rand((B, d), generator=gen, device=dev) - 1.0
+        gate = 0.05 * torch.randn((B, d), generator=gen, device=dev)
+        field = torch.randn((B, d), generator=gen, device=dev)
+        ex = torch.randn((K, B, d), generator=gen, device=dev)
+        dfield = torch.randn((K, B, d), generator=gen, device=dev)
+        got = phi_four.phi_four_score_gate(x, gate, field.clone(), ex, dfield.clone(), **kw)
+        ref = phi_four.phi_four_score_gate_plain(x, gate, field.clone(), ex, dfield.clone(), **kw)
+        torch.cuda.synchronize()
+        err = max(errors(torch, got[0], ref[0]), errors(torch, got[1], ref[1]))
+        # x, gate, field read and field written; ex and dfield read and
+        # dfield written; ~10 operations a site and tangent
+        nbytes = 4 * (4 * B * d + 3 * K * B * d)
+        bnd, by = bound(10 * K * B * d, nbytes)
+        copies = [tuple(v.clone() for v in (x, gate, field, ex, dfield))
+                  for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
+        turn = [0]
+
+        def cold(fn):
+            def call():
+                turn[0] += 1
+                return fn(*copies[turn[0] % len(copies)], **kw)
+            return call
+
+        kern = cold(phi_four.phi_four_score_gate)
+        plain = cold(phi_four.phi_four_score_gate_plain)
+        plain_a, ms_a = cuda_ms(torch, plain, 10, True), cuda_ms(torch, kern, 50, True)
+        ms_b, plain_b = cuda_ms(torch, kern, 50, True), cuda_ms(torch, plain, 10, True)
+        ms, plain_ms = min(ms_a, ms_b), min(plain_a, plain_b)
+        f2, d2 = field.clone(), dfield.clone()
+        warm = lambda: phi_four.phi_four_score_gate(x, gate, f2, ex, d2, **kw)
+        warm_ms, host_ms = cuda_ms(torch, warm, 50, True), cuda_ms(torch, warm, 50)
+        inside = ""
+        if "clip" in kw:
+            s = phi_four.phi_four_value_and_score(x)[1]
+            inside = f", {float((s.abs() < kw['clip']).float().mean()):.2f} of the sites inside"
+        print(f"[3 score gate {label} B={B} d={d} K={K}] max abs {err[0]:.3e} rel {err[1]:.3e} "
+              f"(tol rel {tol}){inside}; kernel cold {ms:.4f} ms ({ms_a:.4f} / {ms_b:.4f}, "
+              f"{len(copies)} copies of {nbytes / 1e6:.1f} MB), warm {warm_ms:.4f} ms, warm "
+              f"and not queued (host-paced) {host_ms:.4f} ms; plain "
+              f"cold {plain_ms:.4f} ms; bound {bnd:.4f} ms ({by}), share {bnd / ms:.3f}",
+              flush=True)
+        if not err[1] <= tol:
+            fail(f"the score gate ({label}) disagrees with its plain version")
+        out = dict(max_abs_err=max(out["max_abs_err"], err[0]),
+                   max_rel_err=max(out["max_rel_err"], err[1]),
+                   ms=out.get("ms", ms), plain_ms=out.get("plain_ms", plain_ms),
+                   bound_ms=out.get("bound_ms", bnd), bound_by=out.get("bound_by", by),
+                   library_ms=None, share_of_bound=out.get("share_of_bound", bnd / ms),
+                   warm_ms=out.get("warm_ms", warm_ms), shape=f"B=1024 d=64 K={K} dirichlet")
+    report["phi_four_score_gate"] = out
 
 
 def phase_transport(torch):
@@ -291,7 +403,7 @@ def phase_transport(torch):
     from mfm_tpu_torch.targets import PhiFour
 
     target = PhiFour(64)
-    net, params = perturbed_net(torch, 64, 128, 128, target.score, seed=1, gate_scale=1e-4)
+    net, params = perturbed_net(torch, 64, 128, 128, target, seed=1, gate_scale=1e-4)
     gen = torch.Generator(device="cuda").manual_seed(1)
     u = torch.randn((1024, 64), generator=gen, device="cuda")
     out = {}
@@ -316,11 +428,32 @@ def phase_transport(torch):
     if not (finite and ex <= 1e-4 and eu <= 1e-4 and eld <= 1e-3):
         fail("the kernel transport disagrees with the module transport")
 
+    # A stage's score gate: the fused kernel against the generic route
+    # (vmap(jvp) of the K3-backed score, torch epilogue), 64 basis tangents.
+    from torch.func import grad, jvp, vmap
+
+    from mfm_tpu_torch.targets.base import generic_score_gate
+
+    x = 1.5 * torch.rand((1024, 64), generator=gen, device="cuda") - 0.75
+    basis = torch.eye(64, device="cuda")[:, None, :].expand(64, 1024, 64).contiguous()
+    gate = 0.05 * torch.randn((1024, 64), generator=gen, device="cuda")
+    field = torch.randn((1024, 64), generator=gen, device="cuda")
+    dfield = torch.randn((64, 1024, 64), generator=gen, device="cuda")
+    generic = lambda: generic_score_gate(target.score, x, gate, field, basis, dfield)
+    fused = target.score_gate(x, gate, field.clone(), basis, dfield.clone())
+    err = max(errors(torch, a, b) for a, b in zip(fused, generic()))
+    f2, d2 = field.clone(), dfield.clone()  # the fused gate adds in place
+    ms = cuda_ms(torch, lambda: target.score_gate(x, gate, f2, basis, d2), 10)
+    gen_ms = cuda_ms(torch, generic, 10)
+    print(f"[4 score gate stage B=1024 d=64 K=64] max abs {err[0]:.3e} rel {err[1]:.3e} (tol rel "
+          f"1e-5); fused {ms:.4f} ms, generic route {gen_ms:.4f} ms (back to back)", flush=True)
+    if not err[1] <= 1e-5:
+        fail("the fused score gate disagrees with the generic route")
+
     # The score gate's tangent: the K3-backed score's analytic H e against
     # forward-over-reverse autodiff of a stencil written out here, over the
     # 64 basis tangents of an exact-divergence stage. fp32 both, 1e-5
     # relative to the largest entry.
-    from torch.func import grad, jvp, vmap
 
     def stencil_log_lik(y):  # the log-density, independent of ops/phi_four.py
         c = 0.1 * y.shape[-1]
@@ -329,8 +462,6 @@ def phase_transport(torch):
         d1 = y_[..., 1:] - y_[..., :-1]
         return -20.0 * (0.5 * c * torch.sum(d1 * d1, -1) + torch.sum(w * w, -1) / (4.0 * c))
 
-    x = 1.5 * torch.rand((1024, 64), generator=gen, device="cuda") - 0.75
-    basis = torch.eye(64, device="cuda")[:, None, :].expand(64, 1024, 64)
     k3_tangent = lambda: vmap(lambda e: jvp(target.score, (x,), (e,))[1])(basis)
     autodiff = lambda: vmap(
         lambda e: jvp(grad(lambda y: stencil_log_lik(y).sum()), (x,), (e,))[1]
@@ -342,32 +473,32 @@ def phase_transport(torch):
     if not err[1] <= 1e-5:
         fail("the K3-backed score's tangent is not the stencil's Hessian-vector product")
 
-    # The two transports share the score-gate term, and its gate is tiny
-    # above. Here the gate is large (no ODE to keep stable): the kernel
-    # path's divergence against the trace of the autograd Jacobian of the
-    # whole field, which shares no code with it.
+    # The gate is tiny above. Here it is large (no ODE to keep stable):
+    # each path's divergence against the trace of the autograd Jacobian of
+    # the whole field (nn.Module forward, autograd through K3's score),
+    # which shares no code with the fused score gate.
     from torch.func import functional_call, jacrev, vmap
 
     from mfm_tpu_torch.flows.cnf import exact_divergence
 
-    net, params = perturbed_net(torch, 64, 128, 128, target.score, seed=2, gate_scale=0.05)
+    net, params = perturbed_net(torch, 64, 128, 128, target, seed=2, gate_scale=0.05)
+    no_gate = {k: torch.zeros_like(v) if k.startswith("gate_head") else v
+               for k, v in params.items()}
     x = 2.0 * torch.rand((16, 64), generator=gen, device="cuda") - 1.0
     t = torch.rand(16, generator=gen, device="cuda")
-    bind = kernel_tangent_field(net)
-    with torch.no_grad():
-        _, div = exact_divergence(bind(params), x, t)
-        net.score_fn = lambda y: torch.zeros_like(y)
-        _, div_no_gate = exact_divergence(bind(params), x, t)
-        net.score_fn = target.score
     jac = vmap(jacrev(lambda xi, ti: functional_call(net, params, (xi, ti))))(x, t)
     trace = torch.diagonal(jac, dim1=-2, dim2=-1).sum(-1).detach()
-    err = errors(torch, div, trace)
-    gate_term = float(torch.max(torch.abs(div - div_no_gate)))
-    # fp32 sums of 64 diagonal terms (|gate| * 256 each) in another order
-    print(f"[4 divergence B=16 d=64 gate 0.05] max abs {err[0]:.3e} rel {err[1]:.3e} "
-          f"(tol rel 1e-4); score-gate term up to {gate_term:.3f}", flush=True)
-    if not (err[1] <= 1e-4 and gate_term > 100 * err[0]):
-        fail("the kernel path's divergence is not the trace of the field's Jacobian")
+    for name, bind in (("kernel", kernel_tangent_field(net)), ("module", module_tangent_field(net))):
+        with torch.no_grad():
+            _, div = exact_divergence(bind(params), x, t)
+            _, div_no_gate = exact_divergence(bind(no_gate), x, t)
+        err = errors(torch, div, trace)
+        gate_term = float(torch.max(torch.abs(div - div_no_gate)))
+        # fp32 sums of 64 diagonal terms (|gate| * 256 each) in another order
+        print(f"[4 divergence {name} B=16 d=64 gate 0.05] max abs {err[0]:.3e} rel {err[1]:.3e} "
+              f"(tol rel 1e-4); score-gate term up to {gate_term:.3f}", flush=True)
+        if not (err[1] <= 1e-4 and gate_term > 100 * err[0]):
+            fail(f"the {name} path's divergence is not the trace of the field's Jacobian")
 
 
 def run_cli(argv, label):
@@ -407,7 +538,7 @@ def main():
     phase_transport(torch)
 
     counters = (field.field_apply, pairwise.stein_pairwise_sum, pairwise.rbf_kernel_sum,
-                phi_four.phi_four_value_and_score)
+                phi_four.phi_four_value_and_score, phi_four.phi_four_score_gate)
     for fn in counters:
         fn.launches = 0
     phases = [
@@ -422,8 +553,15 @@ def main():
     for argv, label in phases:
         before = [f.launches for f in counters]
         run_cli(argv, label)
-        print(f"[{label.split()[0]} launches] " + " ".join(
-            f"{f.__name__}={f.launches - b}" for f, b in zip(counters, before)), flush=True)
+        n = {f.__name__: f.launches - b for f, b in zip(counters, before)}
+        print(f"[{label.split()[0]} launches] " + " ".join(f"{k}={v}" for k, v in n.items()),
+              flush=True)
+        # every phi^4 transport takes the fused score gate; 4-mode, the
+        # generic one (and the pairwise kernels at eval)
+        if "phi-four" in label and not n["phi_four_score_gate"]:
+            fail(f"{label}: no transport went through the fused score gate")
+        if "4-mode" in label and not (n["stein_pairwise_sum"] and n["rbf_kernel_sum"]):
+            fail(f"{label}: the eval kernels were not launched")
     launches = {f.__name__: f.launches for f in counters}
     print(f"[5-8 launches] {json.dumps(launches)}", flush=True)
     if not all(launches.values()):
@@ -437,6 +575,9 @@ def main():
                            "mfm_tpu/ops/pairwise_pallas.py:137"),
         "phi_four_value_and_score": ("mfm_tpu_torch/csrc/phi_four.cu",
                                      "mfm_tpu/ops/phi_four_pallas.py:58"),
+        "phi_four_score_gate": ("mfm_tpu_torch/csrc/phi_four.cu",
+                                "mfm_tpu/ops/phi_four_pallas.py:58 with the score's jax.jvp "
+                                "(mfm_tpu/flows/cnf.py:72)"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

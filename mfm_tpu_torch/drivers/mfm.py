@@ -169,6 +169,7 @@ def build_mfm(
         d, fourier, tuple(cfg.hidden_x), tuple(cfg.hidden_t), tuple(cfg.hidden_xt),
         act=cfg.non_linearity, score_fn=target.score, score_clip=cfg.score_clip,
         generator=init_generator, precision=cfg.field_precision,
+        score_gate=target.score_gate,  # the transport's: fused where the target has it
     ).to(device)
 
     # pallas_field asks for the fused kernel: a net it cannot take is refused

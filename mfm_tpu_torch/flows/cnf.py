@@ -6,18 +6,26 @@ log|det dx/du|, so log q(x) = log q0(u) - logdet; ``inverse`` maps x -> u
 and returns the same quantity accumulated along the reverse path.
 
 The field is a *tangent field* ``f(x, t, ex) -> (v, jv)``: the velocity
-(B, d) and its x-derivative along K tangents ``ex`` (K, B, d). Two of them:
+(B, d) and its x-derivative along K tangents ``ex`` (K, B, d), the
+reference's ``jax.jvp`` of ``net.apply``. Two of them, which differ only in
+the MLP part:
 
-- ``module_tangent_field``: the ``VectorFieldNet`` under ``torch.func.jvp``
-  (the reference's ``jax.jvp`` of ``net.apply``), score gate included;
+- ``module_tangent_field``: the net's MLP (no score term) under
+  ``torch.func.jvp``;
 - ``kernel_tangent_field``: K1 (``ops.field.field_apply``, one launch per
-  stage for all K tangents) plus the score gate, whose derivative the
-  kernel does not see: d/dx [gate * clip(s(x))] . e = gate * mask * (H e),
-  with H e from ``torch.func.jvp`` of the target score. Leaving it out
-  would silently bias the logdet once the gate head is trained.
+  stage for all K tangents).
+
+Both then add the score gate gate * clip(s(x)) and its derivative
+d/dx [gate * clip(s(x))] . e = gate * mask * (H e) (the gate depends on t
+only) through the net's ``score_gate`` (None without a score): the
+target's fused kernel where it has one, else ``vmap(jvp)`` of the score
+(see ``VectorFieldNet``).
+Leaving the derivative out would silently bias the logdet once the gate
+head is trained.
 
 Divergence estimators: ``exact`` pushes the d basis vectors (in chunks of
-``EXACT_CHUNK`` tangents) and sums the diagonal; ``hutchinson`` takes
+``EXACT_CHUNK`` tangents, built contiguous once per transport) and sums
+the diagonal; ``hutchinson`` takes
 probes (B, d) or (K, B, d) supplied by the caller and averages
 p . (J p) over them. The transport runs without autograd.
 """
@@ -37,19 +45,42 @@ from mfm_tpu_torch.ops.field import (
 EXACT_CHUNK = 64  # basis tangents per field call in the exact divergence
 
 
+class _MLP(torch.nn.Module):
+    """The net's ``mlp`` (field and gate, without the score term) as a
+    module, for ``functional_call`` at the parameters ``net.<name>``."""
+
+    def __init__(self, net: torch.nn.Module):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x, t):
+        return self.net.mlp(x, t)
+
+
 def module_tangent_field(net: torch.nn.Module) -> Callable:
-    """``bind(params) -> f(x, t, ex)`` through ``torch.func.jvp`` of the
-    net's ``forward`` at ``params``."""
+    """``bind(params) -> f(x, t, ex)``: the net's MLP under
+    ``torch.func.jvp`` at ``params`` (its primal computed once, inside the
+    jvp), then the score gate."""
+    mlp = _MLP(net)
 
     def bind(params):
+        gate_fn = net.score_gate
+        mlp_params = {f"net.{k}": v for k, v in params.items()}
+
         def f(x, t, ex):
             def apply(u):
-                return functional_call(net, params, (u, t))
+                return functional_call(mlp, mlp_params, (u, t))  # (field, gate as aux)
 
             def one(e):
-                return jvp(apply, (x,), (e,))[1]
+                field, dfield, gate = jvp(apply, (x,), (e,), has_aux=True)
+                return dfield, field, gate
 
-            return apply(x), vmap(one)(ex)
+            dfield, field, gate = vmap(one, out_dims=(0, None, None))(ex)
+            if gate_fn is None:
+                return field, dfield
+            return gate_fn(
+                x.contiguous(), gate, field, ex.contiguous(), dfield.contiguous(), net.score_clip
+            )
 
         return f
 
@@ -64,36 +95,39 @@ def kernel_tangent_field(net: torch.nn.Module) -> Callable:
     def bind(params):
         packed = pack_field_params(params, layout)
         freqs = net.fourier_freqs.contiguous()
+        gate_fn = net.score_gate
 
         def f(x, t, ex):
-            x = x.contiguous()
-            field, gate, dfield = field_apply(
-                packed, layout, net.act_name, freqs, x, t, ex.contiguous()
-            )
-            if net.score_fn is None:
+            x, ex = x.contiguous(), ex.contiguous()
+            field, gate, dfield = field_apply(packed, layout, net.act_name, freqs, x, t, ex)
+            if gate_fn is None:
                 return field, dfield
-            score = net.score_fn(x)
-            dscore = vmap(lambda e: jvp(net.score_fn, (x,), (e,))[1])(ex)
-            if net.score_clip is not None:
-                inside = (score > -net.score_clip) & (score < net.score_clip)
-                dscore = dscore * inside
-                score = torch.clamp(score, -net.score_clip, net.score_clip)
-            return field + gate * score, dfield + gate * dscore
+            return gate_fn(x, gate, field, ex, dfield, net.score_clip)
 
         return f
 
     return bind
 
 
-def exact_divergence(f, x, t, probe=None):
-    """(v, div v) with div = sum_i (J e_i)_i over the d basis vectors."""
+def exact_basis(x: torch.Tensor):
+    """The d basis tangents of x (B, d) in chunks of ``EXACT_CHUNK``: a list
+    of contiguous (k, B, d), which the tangent fields take without a copy."""
     B, d = x.shape
     eye = torch.eye(d, dtype=x.dtype, device=x.device)
+    return [eye[i0 : i0 + EXACT_CHUNK, None, :].expand(-1, B, d).contiguous()
+            for i0 in range(0, d, EXACT_CHUNK)]
+
+
+def exact_divergence(f, x, t, basis=None):
+    """(v, div v) with div = sum_i (J e_i)_i over the d basis vectors;
+    ``basis`` is ``exact_basis(x)``, built here when None."""
+    B, d = x.shape
+    if basis is None:
+        basis = exact_basis(x)
     div = torch.zeros(B, dtype=x.dtype, device=x.device)
-    for i0 in range(0, d, EXACT_CHUNK):
-        idx = torch.arange(i0, min(d, i0 + EXACT_CHUNK), device=x.device)
-        basis = eye[idx][:, None, :].expand(len(idx), B, d)
-        v, jv = f(x, t, basis)
+    for i0, chunk in zip(range(0, d, EXACT_CHUNK), basis):
+        idx = torch.arange(i0, i0 + chunk.shape[0], device=x.device)
+        v, jv = f(x, t, chunk)
         div = div + jv[torch.arange(len(idx), device=x.device), :, idx].sum(0)
     return v, div
 
@@ -146,6 +180,8 @@ def make_transport(
 
     def _run(params, y, probe, sign):
         f = bind(params)
+        if not needs_probe:  # the exact basis, the same at every stage
+            probe = exact_basis(y)
 
         def dyn(state, s):
             x, _ = state

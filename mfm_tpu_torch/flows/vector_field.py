@@ -4,6 +4,11 @@
 Fourier time features [cos(2 pi f t), sin(2 pi f t)], a t-trunk, an x-trunk,
 a joint trunk on [x-trunk, t-trunk], and two zero-initialised heads:
 ``field = field_head(joint) + gate_head(t-trunk) * clip(score(x))``.
+``score_gate`` is that last term with its x-tangents for a transport
+stage (``flows.cnf``): the one given (``Target.score_gate`` of the target
+whose score is ``score_fn``, fused where the target has a kernel for it),
+else ``targets.base.generic_score_gate`` over ``score_fn``; ``forward``
+never uses it.
 
 The module defines the structure and the initial parameters; the drivers
 carry the parameters as a plain ``{name: tensor}`` dict and evaluate the net
@@ -17,12 +22,15 @@ fp32 throughout; 'default' multiplies bf16 operands (see ``Dense``). The
 Fourier features, biases, activations and the score gate stay fp32.
 """
 
+import functools
 import math
 from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mfm_tpu_torch.targets.base import generic_score_gate
 
 NON_LINEARITIES = {
     "tanh": torch.tanh,
@@ -44,13 +52,12 @@ class Dense(nn.Linear):
     """``nn.Linear`` at a field precision.
 
     'default' is the reference's ``precision=None`` on a TPU: bf16 operands,
-    fp32 accumulation, fp32 result. It is written as one bf16 ``F.linear``
-    (fp32 accumulation inside the GEMM, on the tensor cores on a GPU) cast
-    back to fp32, because a bf16 product with an fp32 output
-    (``torch.mm(..., out_dtype=torch.float32)``) has no CPU kernel, and the
-    CPU tests must run this same code. The price is one bf16 rounding of
-    each product's output, which the TPU does not have. Under
-    ``torch.func.jvp`` the tangent goes through the same bf16 product.
+    fp32 accumulation, fp32 result. Both operands are rounded to bf16 and
+    multiplied as fp32 tensors: a product of two bf16 values is exact in
+    fp32, so with TF32 off (``drivers.mfm.set_field_precision``) this is the
+    TPU's arithmetic, one code path on the CPU and the GPU. Under
+    ``torch.func.jvp`` the tangent is rounded to bf16 the same way, as
+    ``jax.jvp`` of a ``precision=None`` dot rounds it.
     """
 
     def __init__(self, in_features: int, out_features: int, precision: str = "highest"):
@@ -62,7 +69,7 @@ class Dense(nn.Linear):
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         if self.precision == "highest":
             return super().forward(h)
-        return F.linear(h.bfloat16(), self.weight.bfloat16()).float() + self.bias
+        return F.linear(h.bfloat16().float(), self.weight.bfloat16().float(), self.bias)
 
 
 def _trunk(widths: Sequence[int], fan_in: int, precision: str) -> nn.ModuleList:
@@ -86,6 +93,7 @@ class VectorFieldNet(nn.Module):
         score_clip: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
         precision: str = "highest",
+        score_gate: Optional[Callable] = None,
     ):
         super().__init__()
         self.dim = dim
@@ -93,6 +101,9 @@ class VectorFieldNet(nn.Module):
         self.act = NON_LINEARITIES[act]
         self.score_fn = score_fn
         self.score_clip = score_clip
+        if score_gate is None and score_fn is not None:
+            score_gate = functools.partial(generic_score_gate, score_fn)
+        self.score_gate = score_gate
         self.register_buffer("fourier_freqs", torch.as_tensor(fourier_freqs))
         n_feat = 2 * self.fourier_freqs.shape[0]
         self.t_trunk = _trunk(hidden_t, n_feat, precision)

@@ -43,6 +43,11 @@ SIGNATURES = {
     "mfm_pairwise_tile": (_I, ()),
     # x, B, d, coef, inv4c, beta, pbc, bc_value, value, score (or NULL), stream
     "mfm_phi_four": (_I, (_P, _I, _I, _F, _F, _F, _I, _F, _P, _P, _P)),
+    # x, gate, field, ex, dfield, B, d, K, coef, beta, pbc, bc_value,
+    # tilt_lambda, tilt_val, has_clip, clip, stream
+    "mfm_phi_four_score_gate": (
+        _I, (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _F, _F, _I, _F, _P)
+    ),
     "mfm_error_string": (_S, (_I,)),
 }
 

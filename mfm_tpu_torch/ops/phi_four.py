@@ -1,5 +1,5 @@
-"""K3: the phi^4 lattice log-likelihood and its score, and their plain
-version.
+"""K3: the phi^4 lattice log-likelihood and its score, the score gate of a
+transport stage with its tangents, and their plain versions.
 
 Replaces ``mfm_tpu/ops/phi_four_pallas.py::phi_four_log_lik``. For x (B, d)
 ``phi_four_value_and_score`` returns ``(log_lik (B,), score (B, d))`` of
@@ -12,9 +12,16 @@ raises). ``phi_four_hvp`` is the score's derivative, a few torch ops.
 any leading shape: ``torch.func`` transforms see it as one opaque op whose
 ``vmap`` rule flattens the batch dimensions into rows, so the CUDA launch
 always receives a plain tensor. ``targets.phi_four`` gives it its
-derivatives (an ``autograd.Function`` around it).
+derivatives (an ``autograd.Function`` around it); calls that need none
+(MALA, the flow-MH accept) take ``phi_four_value_and_score`` directly.
+
+``phi_four_score_gate`` is what a transport stage adds for the score gate
+``gate * clip(score(x))`` of the field: the term itself, and its
+derivative ``gate * m * (H e)`` along every tangent (``m`` the clip's
+inside mask), in one launch, in place (see ``csrc/phi_four.cu``).
 """
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -60,6 +67,44 @@ def phi_four_hvp(x, e, a: float = 0.1, beta: float = 20.0, pbc: bool = False):
     return -beta * ((3.0 * x * x - 1.0) / coef * e + coef * (2.0 * e - left - right))
 
 
+def phi_four_score_gate_plain(
+    x, gate, field, ex=None, dfield=None, a: float = 0.1, beta: float = 20.0,
+    pbc: bool = False, bc_value: float = 0.0, tilt_lambda: float = 0.0,
+    tilt_val: float = 0.0, clip: Optional[float] = None,
+):
+    """Plain PyTorch version of the score-gate kernel, in place:
+    ``field += gate * clip(s)`` and ``dfield += gate * m * (H ex)``, with the
+    tangents (K, B, d) broadcast against x (B, d). Returns (field, dfield)."""
+    d = x.shape[-1]
+    _, score = phi_four_value_and_score_plain(x, a, beta, pbc, bc_value)
+    if tilt_lambda != 0.0:
+        off = tilt_val - torch.mean(x, dim=-1, keepdim=True)
+        score = score + (beta * tilt_lambda / (2.0 * d**2)) * off
+    gate_m = gate
+    if clip is not None:
+        gate_m = gate * ((score > -clip) & (score < clip))
+        score = torch.clamp(score, -clip, clip)
+    field.add_(gate * score)
+    if ex is not None:
+        he = phi_four_hvp(x, ex, a, beta, pbc)
+        if tilt_lambda != 0.0:
+            he = he - (beta * tilt_lambda / (2.0 * d**3)) * torch.sum(ex, -1, keepdim=True)
+        dfield.add_(gate_m * he)
+    return field, dfield
+
+
+@functools.cache
+def _launcher(name: str):
+    """The kernel library's C function ``name``, looked up once."""
+    return getattr(build.load_library(), name)
+
+
+def _stream(x: torch.Tensor) -> int:
+    # the raw cudaStream_t of the current stream, without building a
+    # torch.cuda.Stream object on every call
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
 def phi_four_value_and_score(
     x: torch.Tensor, a: float = 0.1, beta: float = 20.0, pbc: bool = False,
     bc_value: float = 0.0, with_score: bool = True,
@@ -75,20 +120,63 @@ def phi_four_value_and_score(
     coef = a * d
     value = torch.empty(B, device=x.device)
     score = torch.empty_like(x) if with_score else None
-    lib = build.load_library()
-    build.check(
-        lib.mfm_phi_four(
-            x.data_ptr(), B, d, coef, 1.0 / (4.0 * coef), beta, int(pbc), bc_value,
-            value.data_ptr(), score.data_ptr() if with_score else None,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        ),
-        "phi_four_value_and_score",
+    err = _launcher("mfm_phi_four")(
+        x.data_ptr(), B, d, coef, 1.0 / (4.0 * coef), beta, int(pbc), bc_value,
+        value.data_ptr(), score.data_ptr() if with_score else None, _stream(x),
     )
+    if err:
+        build.check(err, "phi_four_value_and_score")
     phi_four_value_and_score.launches += 1
     return value, score
 
 
 phi_four_value_and_score.launches = 0
+
+
+def phi_four_score_gate(
+    x: torch.Tensor, gate: torch.Tensor, field: torch.Tensor,
+    ex: Optional[torch.Tensor] = None, dfield: Optional[torch.Tensor] = None,
+    a: float = 0.1, beta: float = 20.0, pbc: bool = False, bc_value: float = 0.0,
+    tilt_lambda: float = 0.0, tilt_val: float = 0.0, clip: Optional[float] = None,
+):
+    """One transport stage's score gate, in place: ``field += gate *
+    clip(s(x))`` and, with tangents ex (K, B, d), ``dfield += gate * m *
+    (H ex)``; ``clip`` None clamps nothing and masks nothing. x, gate, field
+    (B, d) and ex, dfield (K, B, d) contiguous float32. Returns (field,
+    dfield). The plain version for CPU tensors, ``csrc/phi_four.cu`` for
+    CUDA tensors (or raises)."""
+    if x.device.type == "cpu":
+        return phi_four_score_gate_plain(
+            x, gate, field, ex, dfield, a, beta, pbc, bc_value, tilt_lambda, tilt_val, clip
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"phi_four_score_gate: unsupported device {x.device}")
+    if x.ndim != 2 or x.numel() == 0:
+        raise ValueError("phi_four_score_gate: x must be a non-empty (B, d)")
+    B, d = x.shape
+    K = 0 if ex is None else ex.shape[0]
+    rows = (x, gate, field) + ((ex, dfield) if K else ())
+    if any(t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device
+           for t in rows):
+        raise ValueError("phi_four_score_gate: every tensor must be contiguous float32 "
+                         "on x's device")
+    if gate.shape != x.shape or field.shape != x.shape or (
+        K and (ex.shape != (K, B, d) or dfield.shape != (K, B, d))
+    ):
+        raise ValueError("phi_four_score_gate: gate, field (B, d) and ex, dfield (K, B, d)")
+    err = _launcher("mfm_phi_four_score_gate")(
+        x.data_ptr(), gate.data_ptr(), field.data_ptr(), ex.data_ptr() if K else None,
+        dfield.data_ptr() if K else None, B, d, K, a * d, beta, int(pbc), bc_value,
+        tilt_lambda, tilt_val, int(clip is not None), 0.0 if clip is None else clip,
+        _stream(x),
+    )
+    if err:
+        build.check(err, "phi_four_score_gate")
+    phi_four_score_gate.launches += 1
+    return field, dfield
+
+
+phi_four_score_gate.launches = 0
 
 
 @torch.library.custom_op("mfm_tpu_torch::phi_four", mutates_args=())

@@ -10,9 +10,14 @@ and the analytic score in one pass; the tilt, a function of the row mean,
 is added around it in torch. The derivatives are analytic too: ``score``
 and ``log_lik`` are ``autograd.Function``s whose ``jvp`` and ``backward``
 are the Hessian-vector product H e (stencil plus the tilt's rank-one term),
-so the transport's ``vmap(jvp(score))`` is a few ops, and ``log_lik``'s
-derivative calls ``score`` again, never a saved tensor: a second derivative
-through ``log_lik`` (forward over reverse) sees the Hessian.
+and ``log_lik``'s derivative calls ``score`` again, never a saved tensor: a
+second derivative through ``log_lik`` (forward over reverse) sees the
+Hessian. ``value_and_score`` (MALA, the flow-MH accept) needs no derivative
+and calls K3's launcher without the custom op's dispatch.
+
+A transport never differentiates the score: ``score_gate`` does a stage's
+score gate with all its tangents in one launch of the fused kernel
+(``ops.phi_four.phi_four_score_gate``).
 """
 
 import math
@@ -22,7 +27,12 @@ import numpy as np
 import torch
 from torch.autograd import Function
 
-from mfm_tpu_torch.ops.phi_four import phi_four, phi_four_hvp
+from mfm_tpu_torch.ops.phi_four import (
+    phi_four,
+    phi_four_hvp,
+    phi_four_score_gate,
+    phi_four_value_and_score,
+)
 from mfm_tpu_torch.targets.base import Target
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -91,10 +101,12 @@ class PhiFour(Target):
         self.bc = bc
         self.tilt = tilt
 
-    def _value_and_score(self, x, with_score: bool):
+    def _value_and_score(self, x, with_score: bool, op=phi_four):
         """K3 plus the tilt -beta lam (val - mean x)^2 / (4d), whose
-        gradient is beta lam (val - mean x) / (2 d^2) at every site."""
-        value, score = phi_four(
+        gradient is beta lam (val - mean x) / (2 d^2) at every site. ``op``
+        is the custom op (any leading shape, seen by ``torch.func``) or the
+        bare launcher (rows (B, d))."""
+        value, score = op(
             x, self.a, self.beta, self.bc[0] == "pbc", float(self.bc[1]), with_score
         )
         if self.tilt is None:
@@ -120,9 +132,18 @@ class PhiFour(Target):
         return _Score.apply(x, self)
 
     def value_and_score(self, x):
-        """One K3 launch for both (not differentiable: MALA and the
-        flow-MH accept only read them)."""
-        return self._value_and_score(x, with_score=True)
+        """One K3 launch for both, x (B, d), straight from the launcher (not
+        differentiable: MALA and the flow-MH accept only read them)."""
+        return self._value_and_score(x, with_score=True, op=phi_four_value_and_score)
+
+    def score_gate(self, x, gate, field, ex=None, dfield=None, clip=None):
+        """One transport stage's score gate and its tangents on the fused
+        kernel, one launch, in place on field and dfield."""
+        lam, val = (self.tilt["lambda"], self.tilt["val"]) if self.tilt else (0.0, 0.0)
+        return phi_four_score_gate(
+            x, gate, field, ex, dfield, self.a, self.beta, self.bc[0] == "pbc",
+            float(self.bc[1]), lam, val, clip,
+        )
 
     def tempered_value_and_score(self, x, beta):
         value, score = self.value_and_score(x)

@@ -18,7 +18,8 @@ do not meet; K2a/K2b to
 1e-4 relative -- the kernel takes differences directly and reduces in
 fp64, the plain version takes Gram products in fp32 tiles; K3 and its
 Hessian-vector product to 1e-5 relative -- fp32 sums of d terms in another
-order (warp shuffles), and the same per-site stencil.
+order (warp shuffles), and the same per-site stencil; the fused score
+gate to 1e-5 relative -- the same sums of three terms per site.
 """
 
 import pytest
@@ -243,3 +244,89 @@ def test_cuda_phi_four_launches_k3(cuda):
         before = counter.launches
         call(x)
         assert counter.launches == before + 1
+
+
+def _gate_inputs(dev, B, d, K, seed, shift=0):
+    """x in (-1, 1), a small gate, random field and tangents; ``shift``
+    offsets every tensor by that many floats into its storage (a pointer
+    not 16-byte aligned)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        n = 1
+        for s in shape:
+            n *= s
+        return scale * torch.randn(n + shift, generator=gen, device=dev)[shift:].view(shape)
+
+    x = (2.0 * torch.rand((B, d), generator=gen, device=dev) - 1.0)
+    if shift:
+        x = draw(B, d).copy_(x)
+    ex = draw(K, B, d) if K else None
+    dfield = draw(K, B, d) if K else None
+    return x, draw(B, d, scale=0.05), draw(B, d), ex, dfield
+
+
+@pytest.mark.parametrize("B,d,K,kw,shift", [
+    (1024, 64, 64, {}, 0),                                     # the slice's stage
+    (1024, 64, 64, {"pbc": True, "tilt_lambda": 2.0, "tilt_val": 0.3}, 0),
+    (37, 64, 64, {"clip": 60.0, "bc_value": 0.5}, 0),
+    (1000, 37, 5, {"pbc": True, "clip": 80.0}, 0),             # d not a multiple of 4
+    (300, 1024, 2, {"tilt_lambda": 1.0, "tilt_val": -0.2}, 0), # the widest tiled row, 8 chunks
+    (40, 2048, 3, {"tilt_lambda": 1.0, "tilt_val": -0.2}, 0),  # wider: one warp a row
+    (33, 258, 2, {"pbc": True, "clip": 60.0}, 0),              # wider at 1 site a lane
+    (20, 512, 2, {"pbc": True}, 1),                            # unaligned, wider at 1 site
+    (77, 300, 3, {"pbc": True}, 0),                            # 3 of 4 chunks used
+    (50, 64, 3, {"pbc": True, "clip": 60.0}, 1),               # unaligned: 1 site a lane
+    (129, 8, 0, {"clip": 30.0}, 0),                            # no tangents
+    (3, 1, 2, {"pbc": True}, 0),                               # one site
+])
+def test_score_gate_kernel_matches_plain(cuda, B, d, K, kw, shift):
+    x, gate, field, ex, dfield = _gate_inputs(cuda, B, d, K, B + d + K, shift)
+    ref = phi_four.phi_four_score_gate_plain(
+        x, gate, field.clone(), ex, None if dfield is None else dfield.clone(), **kw
+    )
+    before = phi_four.phi_four_score_gate.launches
+    got = phi_four.phi_four_score_gate(x, gate, field, ex, dfield, **kw)
+    torch.cuda.synchronize()
+    assert phi_four.phi_four_score_gate.launches == before + 1
+    assert got[0] is field and got[1] is dfield  # in place
+    assert _rel_err(got[0], ref[0]) <= 1e-5
+    if K:
+        assert _rel_err(got[1], ref[1]) <= 1e-5
+
+
+def test_score_gate_kernel_refuses_what_it_cannot_run(cuda):
+    x, gate, field, ex, dfield = _gate_inputs(cuda, 8, 16, 2, 0)
+    with pytest.raises(ValueError, match="float32"):
+        phi_four.phi_four_score_gate(x, gate, field.double(), ex, dfield)
+    with pytest.raises(ValueError, match="contiguous"):
+        phi_four.phi_four_score_gate(x, gate, field, ex.transpose(1, 2), dfield)
+    with pytest.raises(ValueError, match=r"\(K, B, d\)"):
+        phi_four.phi_four_score_gate(x, gate, field, ex, dfield[:1])
+
+
+def test_phi_four_transport_takes_the_fused_gate(cuda, monkeypatch):
+    """Both tangent fields with PhiFour's fused gate against the same
+    transport on the generic route (vmap(jvp) of the K3-backed score);
+    the fused one never reaches PhiFour.hvp."""
+    target = PhiFour(64)
+    net, params = _net(cuda, 64, 64, 16, score_fn=target.score, gate_scale=1e-3, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    u = 2.0 * torch.rand((256, 64), generator=gen, device=cuda) - 1.0
+    generic = make_transport(kernel_tangent_field(net), divergence="exact", n_steps=3)
+    ref = generic.forward(params, u)
+    net.score_gate = target.score_gate
+
+    def no_hvp(*args, **kwargs):
+        raise AssertionError("the fused route reached PhiFour.hvp")
+
+    monkeypatch.setattr(PhiFour, "hvp", no_hvp)
+    for bind in (kernel_tangent_field(net), module_tangent_field(net)):
+        before = phi_four.phi_four_score_gate.launches
+        x, logdet = make_transport(bind, divergence="exact", n_steps=3).forward(params, u)
+        torch.cuda.synchronize()
+        assert phi_four.phi_four_score_gate.launches == before + 12  # 3 RK4 steps
+        # fp32, 12 stages, summation order differs (x); the logdet sums
+        # 12 x 64 diagonal terms
+        assert float((x - ref[0]).abs().max()) <= 1e-4
+        assert float((logdet - ref[1]).abs().max()) <= 1e-3

@@ -8,16 +8,30 @@ port to a JAX twin of the net written with explicit bf16 operands and
 ``preferred_element_type=float32``, and to the package's fp32 net.
 
 Tolerances, relative to each output's largest entry:
-- 2e-2 for the forward field against the twin and against the fp32 net.
-  The port rounds each product's output to bf16 once more than the twin
-  does (2^-9 relative per layer, five layers deep with the score gate).
-- 1e-2 for the tangents and 2e-2 for the loss gradient against the twin,
-  with tanh: a smooth activation keeps the differences at rounding size.
-  (relu's derivative is a step: a rounding that moves a pre-activation
-  across 0 flips a unit, and the tangents then differ by O(w).)
-Those bounds cannot tell bf16 from fp32 products, so
-``test_default_rounds_every_product_operand_to_bf16`` checks the rounding
-itself, exactly, on inputs where fp32 gives 2^-7 and bf16 gives 0.
+- 1e-6 for one ``Dense`` against the bf16-operand, fp32-accumulate dot:
+  products of bf16 values are exact in fp32, so only the order of the
+  fp32 sum differs (measured 3e-7).
+- 1e-3 (``FLIP``) for the forward field and its tangents against the
+  twin. Both round the same operands; the only difference is the order of
+  each fp32 sum, ~1e-7 relative, which is harmless unless it moves a
+  later layer's input across a bf16 rounding boundary. Such a flipped
+  rounding changes that operand by one bf16 ulp (2^-8 of it, on average)
+  and so one output by that fraction of one of the ~32 products it sums:
+  below 1e-3 of the largest entry at these widths. (Measured: forward 4e-8,
+  tangents up to 1.5e-4 over four seeds. An extra bf16 rounding of each
+  product's output would give 3e-3 to 6e-3 and fail.)
+- 2e-3 for the loss gradient against the twin: on top of the flips,
+  JAX's transpose of a bf16 dot rounds each cotangent product to bf16
+  (2^-9 relative), which the port's fp32 backward does not. (Measured up
+  to 7.7e-4; the extra rounding above gives 7e-3 to 1.3e-2.)
+- 2e-2 for the forward field against the package's fp32 net: this is bf16
+  against fp32, five layers of 2^-8 operand rounding, not a port error.
+The tangent and gradient checks use tanh: a smooth activation keeps the
+differences at rounding size (relu's derivative is a step: a rounding
+that moves a pre-activation across 0 flips a unit, and the tangents then
+differ by O(w)). ``test_default_rounds_every_product_operand_to_bf16``
+checks the rounding itself, exactly, on inputs where fp32 gives 2^-7 and
+bf16 gives 0.
 """
 
 import jax
@@ -37,6 +51,7 @@ from torch_parity import flax_field, npy, torch_field, tt
 torch.set_num_threads(1)
 
 D, W, F, B = 8, 32, 8, 64
+FLIP = 1e-3  # one flipped bf16 operand rounding in a later layer (see above)
 
 
 def _dense_bf16(p, h):
@@ -82,15 +97,34 @@ def _assert_close(got, ref, rel):
     np.testing.assert_allclose(got, ref, atol=rel * float(np.abs(ref).max()), rtol=0)
 
 
+@pytest.mark.parametrize("n,k,m", [(64, 128, 128), (7, 33, 5)])
+def test_default_dense_matches_bf16_dot(n, k, m):
+    """One Dense('default') against jnp.dot of bf16 operands with an fp32
+    result: the TPU's arithmetic, with no rounding of the output."""
+    rng = np.random.default_rng(n + k + m)
+    h = rng.standard_normal((n, k)).astype(np.float32)
+    w = (rng.standard_normal((k, m)) / np.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal(m).astype(np.float32)
+    layer = Dense(k, m, "default")
+    with torch.no_grad():
+        layer.weight.copy_(tt(w.T))
+        layer.bias.copy_(tt(b))
+    ref = np.asarray(_dense_bf16({"kernel": jnp.asarray(w), "bias": jnp.asarray(b)},
+                                 jnp.asarray(h)))
+    _assert_close(npy(layer(tt(h))), ref, 1e-6)
+
+
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 def test_default_net_matches_bf16_twin_and_fp32_net(act):
     net_j, params, freqs, net_p, pparams, x, t, _ = _setup(act)
     jact = jax.nn.relu if act == "relu" else jnp.tanh
     twin = np.asarray(_twin(params, freqs, jnp.asarray(x), jnp.asarray(t), jact, _jscore))
     got = npy(functional_call(net_p, pparams, (tt(x), tt(t))))
-    _assert_close(got, twin, 2e-2)
-    _assert_close(got, np.asarray(net_j.apply(params, jnp.asarray(x), jnp.asarray(t))), 2e-2)
-    assert np.abs(got - twin).max() > 0  # the bf16 path ran, not the fp32 one
+    fp32 = np.asarray(net_j.apply(params, jnp.asarray(x), jnp.asarray(t)))
+    _assert_close(got, twin, FLIP)
+    _assert_close(got, fp32, 2e-2)
+    # the bf16 path ran, not the fp32 one (measured 2e-3 to 7e-3 apart)
+    assert np.abs(got - fp32).max() > 1e-4 * np.abs(fp32).max()
 
 
 def test_default_tangents_and_loss_gradient_match_bf16_twin():
@@ -106,13 +140,13 @@ def test_default_tangents_and_loss_gradient_match_bf16_twin():
     ])
     apply = lambda u: functional_call(net_p, pparams, (u, tt(t)))
     got = vmap(lambda e: jvp(apply, (tt(x),), (e,))[1])(tt(ex))
-    _assert_close(npy(got), ref, 1e-2)
+    _assert_close(npy(got), ref, FLIP)
 
     g_ref = jax.grad(lambda p: jnp.sum((twin(p, jnp.asarray(x)) - y) ** 2))(params)
     g_ref = params_from_flax(jax.tree_util.tree_map(np.asarray, g_ref))
     g = grad(lambda p: torch.sum((functional_call(net_p, p, (tt(x), tt(t))) - tt(y)) ** 2))(pparams)
     for k, v in g.items():
-        _assert_close(npy(v), npy(g_ref[k]), 2e-2)
+        _assert_close(npy(v), npy(g_ref[k]), 2e-3)
 
 
 @pytest.mark.parametrize("precision,expected", [("default", 0.0), ("highest", 2.0**-7)])

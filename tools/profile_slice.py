@@ -15,7 +15,9 @@ preset as shipped (the bf16 nn.Module field). It prints two JSON lines:
    calls that end in a device synchronisation: a MALA-type and a flow-type
    ``step_fn``, one forward transport, one RK4 stage with the exact
    divergence and its parts (K1 with d tangents, whichever field the run
-   uses; the score, the score-gate JVP), the FM loss gradient, AdamW, and
+   uses; the score gate with its d tangents on the run's route, which is
+   PhiFour's fused kernel, and on the generic route, ``vmap(jvp)`` of the
+   score); ``PhiFour.value_and_score``, the FM loss gradient, AdamW, and
    the tempering bisection;
 2. ``profiled``: for ``--mala-steps`` MALA-type iterations and for one
    flow-type iteration under ``torch.profiler``, the wall time of the
@@ -35,7 +37,7 @@ import time
 from pathlib import Path
 
 import torch
-from torch.func import grad_and_value, jvp, vmap
+from torch.func import grad_and_value
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -50,6 +52,7 @@ from mfm_tpu_torch.drivers.mfm import (  # noqa: E402
 from mfm_tpu_torch.flows import apply_gradients, exact_divergence  # noqa: E402
 from mfm_tpu_torch.ops.field import field_apply, field_layout, pack_field_params  # noqa: E402
 from mfm_tpu_torch.targets import PhiFour  # noqa: E402
+from mfm_tpu_torch.targets.base import generic_score_gate  # noqa: E402
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 
@@ -146,6 +149,8 @@ def main():
     step = lambda c: pieces.step_fn(carry, c, *noise[c])
 
     reps = args.reps
+    gate, field = 0.01 * torch.randn_like(x), torch.zeros_like(x)
+    dfield = torch.zeros_like(basis)
     with torch.no_grad():
         stage = {
             "stage_exact_div_ms": host_ms(lambda: exact_divergence(f, x, t), reps, device),
@@ -153,9 +158,13 @@ def main():
                 lambda: field_apply(packed, layout, cfg.non_linearity, freqs, x, t, basis),
                 reps, device,
             ),
-            "stage_score_ms": host_ms(lambda: target.score(x), reps, device),
-            "stage_score_jvp_ms": host_ms(
-                lambda: vmap(lambda e: jvp(target.score, (x,), (e,))[1])(basis), reps, device
+            # in place on field and dfield (the fused route): fine for timing
+            "stage_score_gate_ms": host_ms(
+                lambda: pieces.net.score_gate(x, gate, field, basis, dfield), reps, device
+            ),
+            "stage_score_gate_generic_ms": host_ms(
+                lambda: generic_score_gate(target.score, x, gate, field, basis, dfield),
+                reps, device,
             ),
             "transport_fwd_ms": host_ms(lambda: pieces.transport.forward(params, x), 1, device),
         }
@@ -163,6 +172,7 @@ def main():
         "step_mala_ms": host_ms(lambda: step(mala_count), reps, device),
         "step_flow_ms": host_ms(lambda: step(flow_count), 1, device),
         **stage,
+        "value_and_score_ms": host_ms(lambda: target.value_and_score(x), reps, device),
         "loss_grad_ms": host_ms(lambda: loss_grad(params, x, noise[mala_count][1]), reps, device),
         "adamw_ms": host_ms(lambda: apply_gradients(carry.train, grads, pieces.tx), reps, device),
         "temper_ms": host_ms(
