@@ -11,14 +11,22 @@ own; any failure exits non-zero before the final line:
 3. each kernel against its plain PyTorch version at the slice's shapes:
    K1 primal and with K=64 tangents (B=1024, d=64, widths 128, F=128,
    relu, every parameter perturbed so the heads are non-zero), K2a at
-   (1024, 64) and (12800, 2), K2b at (12800, 2), K3 (value and score) at
+   (1024, 64), (12800, 2), (12800, 64) and (12800, 1600), at a d on each
+   side of its route threshold with a ragged T, and at beta = -0.3; K2b at
+   (12800, 2) between two point sets, of one with itself, as the three
+   sums of an MMD in one launch, and ragged at d = 33 (K2a and K2b against
+   their plain versions in float64, every call twice for equal bits, and
+   no slower than before their redesign); K3 (value and score) at
    (1024, 64) Dirichlet, (1024, 64) periodic and (37, 64) with the ends at
    0.5, and K3 through PhiFour.value_and_score; the phi-four score gate
    with 64 tangents at (1024, 64) Dirichlet, periodic, tilted, and clipped
    at (37, 64), timed with its inputs cold in the L2 (and warm) and its
    launches queued behind a spin (device time, not host dispatch); errors
-   and CUDA-event times of kernel and plain version, and each kernel's bound (the larger of its operations over the card's
-   peak rate and its bytes over the memory rate); K1's achieved TFLOP/s
+   and CUDA-event times of kernel and plain version, and each kernel's
+   bound (the larger of its operations over the card's peak rate and its
+   bytes over the memory rate; for K2a and K2b over the pairs any
+   implementation must visit, with the special-function pipe as a third
+   rate); K1's achieved TFLOP/s
    and its share of the fp32 FMA bound and of the 3xTF32 tensor-core bound;
 4. one forward + inverse transport through K1 against the same transport
    through the nn.Module (torch.func.jvp), B=1024, d=64, both with
@@ -123,11 +131,12 @@ def phase_device(torch):
 
 
 def kernel_name(mangled: str) -> str:
-    """``phi_four_score_gate_kernel<4,1>`` from its mangled name."""
-    m = re.search(r"\d([a-z][a-z_]*kernel)(I(?:Li\d+E)+E)?", mangled)
+    """``phi_four_score_gate_kernel<4,1>`` from its mangled name (integer
+    and boolean template arguments, a boolean as 0 or 1)."""
+    m = re.search(r"\d([a-z][a-z_]*kernel)(I(?:L[ib]\d+E)+E)?", mangled)
     if m is None:
         return mangled
-    values = re.findall(r"Li(\d+)E", m.group(2) or "")
+    values = re.findall(r"L[ib](\d+)E", m.group(2) or "")
     return m.group(1) + (f"<{','.join(values)}>" if values else "")
 
 
@@ -172,8 +181,8 @@ def perturbed_net(torch, dim, width, n_fourier, target, seed=0, gate_scale=0.05)
 
 
 def phase_kernels(torch, report):
-    from mfm_tpu_torch.ops import field, pairwise, phi_four
-    from mfm_tpu_torch.targets import PhiFour, four_mode_mixture
+    from mfm_tpu_torch.ops import field, phi_four
+    from mfm_tpu_torch.targets import PhiFour
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -234,52 +243,7 @@ def phase_kernels(torch, report):
         shape=f"B={B} d={d} K={K} widths={W} F={F}",
     )
 
-    # the fp64-reduced kernel sum against the plain version's Gram-form
-    # fp32 tiles: relative 1e-4 covers the Gram cancellation at |x| ~ 8
-    tol_k2 = 1e-4
-    four = four_mode_mixture(dev)
-    cases = [
-        ("stein_pairwise_sum", (1024, 64), PhiFour(64).score,
-         lambda T, D: 0.5 * torch.randn((T, D), generator=gen, device=dev)),
-        ("stein_pairwise_sum", (12800, 2), four.score, lambda T, D: four.sample(gen, (T,))),
-    ]
-    for name, (T, D), score, draw in cases:
-        X = draw(T, D).contiguous()
-        S = score(X).contiguous()
-        kern = lambda: pairwise.stein_pairwise_sum(X, S)
-        plain = lambda: pairwise.stein_pairwise_sum_plain(X, S)
-        err = errors(torch, kern(), plain())
-        ms, plain_ms = cuda_ms(torch, kern, 5), cuda_ms(torch, plain, 5)
-        # per pair: four length-D dot products (x.x, s.x, x.s, s.s) and ~20
-        # scalar operations for the IMQ terms
-        bnd, by = bound(T * T * (8 * D + 20), 4 * 2 * T * D + 8)
-        print(f"[3 K2a T={T} d={D}] abs {err[0]:.3e} rel {err[1]:.3e} (tol rel {tol_k2}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})",
-              flush=True)
-        if not err[1] <= tol_k2:
-            fail(f"K2a at ({T}, {D}) disagrees with its plain version")
-        prev = report.get(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
-        report[name] = dict(max_abs_err=max(prev["max_abs_err"], err[0]),
-                            max_rel_err=max(prev["max_rel_err"], err[1]), ms=ms,
-                            plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
-                            shape=f"T={T} d={D}")
-
-    A = four.sample(gen, (12800,)).contiguous()
-    Bm = four.sample(gen, (12800,)).contiguous()
-    kern = lambda: pairwise.rbf_kernel_sum(A, Bm)
-    plain = lambda: pairwise.rbf_kernel_sum_plain(A, Bm)
-    err = errors(torch, kern(), plain())
-    ms, plain_ms = cuda_ms(torch, kern, 5), cuda_ms(torch, plain, 5)
-    # per pair: a squared distance over d=2 (3 operations a dimension), a
-    # scale and an exp
-    bnd, by = bound(12800 * 12800 * (3 * 2 + 3), 4 * 2 * 12800 * 2 + 8)
-    print(f"[3 K2b T=12800 d=2] abs {err[0]:.3e} rel {err[1]:.3e} (tol rel {tol_k2}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
-    if not err[1] <= tol_k2:
-        fail("K2b disagrees with its plain version")
-    report["rbf_kernel_sum"] = dict(max_abs_err=err[0], max_rel_err=err[1], ms=ms,
-                                    plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                                    library_ms=None, shape="Ta=Tb=12800 d=2")
+    phase_pairwise(torch, report, gen)
 
     # K3: value and score are fp32 sums of d terms (warp shuffles against
     # torch's reduction) and one stencil per site; 1e-5 relative to each
@@ -320,6 +284,195 @@ def phase_kernels(torch, report):
           f"phi_four_value_and_score {k3['launcher_ms']:.4f} ms", flush=True)
     report["phi_four_value_and_score"] = k3
     phase_score_gate(torch, report, gen)
+
+
+# K2a/K2b before their redesign, on this card at 700 W (PERF.md section 6):
+# the redesigned kernels must not be slower.
+PARENT_MS = {"K2a T=1024 d=64": 0.0644, "K2a T=12800 d=2": 1.7155, "K2b Ta=Tb=12800 d=2": 0.3256}
+SFU_PER_CLOCK_SM = 16  # special-function results a clock an SM (exp2, rsqrt)
+
+
+def sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def pair_bound(torch, pairs, flops_per_pair, nbytes):
+    """The bound of a pairwise sum over ``pairs`` pairs that any
+    implementation must visit: the largest of its bytes over the memory
+    rate, one special-function operation a pair over that pipe's rate, and
+    its multiply-adds over the fp32 FMA peak. Beside it, what three TF32
+    passes on the tensor cores would need (fp32's accuracy too): the floor
+    of the Gram route, which may yet come in under the fp32 bound."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    flops = pairs * flops_per_pair
+    parts = {
+        "bytes": nbytes / HBM_RATE * 1e3,
+        "special-function": pairs / (SFU_PER_CLOCK_SM * n_sm * sm_clock_hz()) * 1e3,
+        "fp32": flops / FP32_PEAK * 1e3,
+        "3xtf32": 3 * flops / TF32_PEAK * 1e3,
+    }
+    pipe = max(("bytes", "special-function", "fp32"), key=parts.get)
+    return dict(bound_ms=parts[pipe], bound_by="bytes" if pipe == "bytes" else "operations",
+                bound_pipe=pipe, bound_fp32_ms=parts["fp32"], bound_3xtf32_ms=parts["3xtf32"],
+                bound_sfu_ms=parts["special-function"], bound_bytes_ms=parts["bytes"])
+
+
+def in_turns(torch, kern, plain, reps, plain_reps):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain, launches queued."""
+    plain_a, ms_a = cuda_ms(torch, plain, plain_reps, True), cuda_ms(torch, kern, reps, True)
+    ms_b, plain_b = cuda_ms(torch, kern, reps, True), cuda_ms(torch, plain, plain_reps, True)
+    return min(ms_a, ms_b), min(plain_a, plain_b)
+
+
+def pairwise_inputs(torch):
+    """The seeded inputs of the three shapes K2a and K2b were timed at before
+    their redesign, by label: (X, S) for K2a, (A, B) for K2b. A generator of
+    their own, so that tools/pairwise_variants.py gives the parent's kernels
+    the same arrays."""
+    from mfm_tpu_torch.targets import PhiFour, four_mode_mixture
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    four = four_mode_mixture(dev)
+    X64 = 0.5 * torch.randn((1024, 64), generator=gen, device=dev)
+    X2, A, B = (four.sample(gen, (12800,)).contiguous() for _ in range(3))
+    return {
+        "K2a T=1024 d=64": (X64, PhiFour(64).score(X64).contiguous()),
+        "K2a T=12800 d=2": (X2, four.score(X2).contiguous()),
+        "K2b Ta=Tb=12800 d=2": (A, B),
+    }
+
+
+def phase_pairwise(torch, report, gen):
+    """K2a and K2b against their plain versions run in float64 on the card,
+    relative to the sum: 1e-5 on the differences routes (fp32 terms of
+    rsqrt.approx / ex2.approx, 2 ulp each, summed in fp64); on the Gram
+    route the larger of 1e-5 and the fp32 plain version's own error against
+    float64 (both take the Gram form's cancellation). Every kernel call is
+    made twice and must return the same bits."""
+    from mfm_tpu_torch.ops import pairwise
+    from mfm_tpu_torch.targets import PhiFour, four_mode_mixture
+
+    dev = torch.device("cuda")
+    four = four_mode_mixture(dev)
+    gauss = lambda scale: (lambda T, D: scale * torch.randn((T, D), generator=gen, device=dev))
+    old = pairwise_inputs(torch)
+    wide = pairwise.GRAM_MIN_D
+    stein_cases = [  # (T, d, score, draw, beta, timed)
+        (1024, 64, PhiFour(64).score, lambda T, D: old["K2a T=1024 d=64"][0], -0.5, True),
+        (12800, 2, four.score, lambda T, D: old["K2a T=12800 d=2"][0], -0.5, True),
+        (12800, 64, PhiFour(64).score, gauss(0.5), -0.5, True),
+        (12800, 1600, lambda x: -x, gauss(1.0), -0.5, True),
+        (1000, wide - 1, lambda x: -x, gauss(1.0), -0.5, False),  # each side of the route
+        (1000, wide, lambda x: -x, gauss(1.0), -0.5, False),      # threshold, ragged T
+        (1000, 3, lambda x: -x / 4.0, gauss(2.0), -0.3, False),   # the general-b instances
+        (300, 200, lambda x: -x, gauss(1.0), -0.3, False),
+    ]
+    rows = []
+    for T, D, score, draw, beta, timed in stein_cases:
+        X = draw(T, D).contiguous()
+        S = score(X).contiguous()
+        route = "gram" if D >= wide else "diff"
+        kern = lambda: pairwise.stein_pairwise_sum(X, S, beta)
+        ref = pairwise.stein_pairwise_sum_plain(X.double(), S.double(), beta)
+        plain32 = pairwise.stein_pairwise_sum_plain(X, S, beta)
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        err, plain_err = errors(torch, got, ref), errors(torch, plain32, ref)
+        tol = max(1e-5, plain_err[1]) if route == "gram" else 1e-5
+        label = f"K2a T={T} d={D}" + ("" if beta == -0.5 else f" beta={beta}")
+        line = (f"[3 {label} {route}] abs {err[0]:.3e} rel {err[1]:.3e} (tol rel {tol:.1e}; "
+                f"plain fp32 rel {plain_err[1]:.3e}); bits repeat {torch.equal(got, again)}")
+        if not (err[1] <= tol and torch.equal(got, again)):
+            print(line, flush=True)
+            fail(f"{label} disagrees with its float64 plain version, or does not repeat")
+        row = dict(shape=f"T={T} d={D}", form=route, max_abs_err=err[0], max_rel_err=err[1],
+                   tol_rel=tol)
+        if timed:
+            plain = lambda: pairwise.stein_pairwise_sum_plain(X, S, beta)
+            big = T * D > 1e6
+            ms, plain_ms = in_turns(torch, kern, plain, 5 if big else 50, 3 if big else 5)
+            # per unordered pair: three length-D products (x.x, s.s and the
+            # cross terms) and ~12 operations for the IMQ terms
+            bnd = pair_bound(torch, T * (T + 1) // 2, 6 * D + 12, 4 * 2 * T * D + 8)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bnd,
+                       share_of_bound=bnd["bound_ms"] / ms,
+                       share_of_3xtf32_bound=bnd["bound_3xtf32_ms"] / ms)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} "
+                     f"ms ({bnd['bound_pipe']}; fp32 {bnd['bound_fp32_ms']:.4f}, 3xTF32 "
+                     f"{bnd['bound_3xtf32_ms']:.4f}), share {row['share_of_bound']:.3f}"
+                     + (f" (of 3xTF32 {row['share_of_3xtf32_bound']:.3f})" if route == "gram" else ""))
+            if D >= wide or D == 64:  # the other route at the same shape
+                other = "diff" if route == "gram" else "gram"
+                alt = lambda: pairwise.stein_pairwise_sum(X, S, beta, route=other)
+                alt_err = errors(torch, alt(), ref)
+                row["other_route_ms"] = cuda_ms(torch, alt, 3 if big else 20, True)
+                line += (f"; the {other} route {row['other_route_ms']:.4f} ms "
+                         f"(rel {alt_err[1]:.3e})")
+            rows.append(row)
+        print(line, flush=True)
+        if timed and not row["share_of_bound"] <= 1.0:
+            fail(f"{label}: faster than its bound, so the bound's count is wrong")
+        parent = PARENT_MS.get(label)
+        if parent is not None and not row["ms"] <= parent:
+            fail(f"{label}: {row['ms']:.4f} ms, slower than before its redesign ({parent} ms)")
+    main = rows[1]  # the eval of the 4-mode run; every shape under "shapes"
+    report["stein_pairwise_sum"] = dict(
+        main, max_abs_err=max(r["max_abs_err"] for r in rows),
+        max_rel_err=max(r["max_rel_err"] for r in rows), shapes=rows)
+
+    T = 12800
+    A, Bm = old["K2b Ta=Tb=12800 d=2"]
+    nbytes = 4 * 2 * T * 2 + 8
+    rbf_cases = [  # (label, kernel, float64 plain, fp32 plain, pairs, bytes)
+        ("K2b Ta=Tb=12800 d=2", lambda: pairwise.rbf_kernel_sum(A, Bm),
+         lambda a, b: pairwise.rbf_kernel_sum_plain(a, b), T * T, nbytes),
+        ("K2b A=B T=12800 d=2", lambda: pairwise.rbf_kernel_sum(A, A),
+         lambda a, b: pairwise.rbf_kernel_sum_plain(a, a), T * (T + 1) // 2, nbytes // 2),
+        ("K2b MMD T=12800 d=2", lambda: pairwise.rbf_mmd_sums(A, Bm),
+         lambda a, b: pairwise.rbf_mmd_sums_plain(a, b), T * T + T * (T + 1), nbytes),
+    ]
+    rows = []
+    for label, kern, plain, pairs, nb in rbf_cases:
+        got, again = kern(), kern()
+        ref = plain(A.double(), Bm.double())
+        torch.cuda.synchronize()
+        err = max(errors(torch, g, r) for g, r in zip(got.reshape(-1), ref.reshape(-1)))
+        ms, plain_ms = in_turns(torch, kern, lambda: plain(A, Bm), 50, 5)
+        # per pair: a squared distance over d=2 (a subtraction and a
+        # multiply-add a dimension), an exp and an add
+        bnd = pair_bound(torch, pairs, 3 * 2 + 2, nb)
+        row = dict(shape=label[4:], max_abs_err=err[0], max_rel_err=err[1], ms=ms,
+                   plain_ms=plain_ms, library_ms=None, **bnd, share_of_bound=bnd["bound_ms"] / ms)
+        rows.append(row)
+        print(f"[3 {label}] abs {err[0]:.3e} rel {err[1]:.3e} (tol rel 1e-5); bits repeat "
+              f"{torch.equal(got, again)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_pipe']}), share {row['share_of_bound']:.3f}",
+              flush=True)
+        if not (err[1] <= 1e-5 and torch.equal(got, again)):
+            fail(f"{label} disagrees with its float64 plain version, or does not repeat")
+        if not row["share_of_bound"] <= 1.0:
+            fail(f"{label}: faster than its bound, so the bound's count is wrong")
+        parent = PARENT_MS.get(label)
+        if parent is not None and not ms <= parent:
+            fail(f"{label}: {ms:.4f} ms, slower than before its redesign ({parent} ms)")
+    # the chunked route, ragged on both sides, at another bandwidth
+    P = 1.5 * torch.randn((1000, 33), generator=gen, device=dev)
+    Q = 1.5 * torch.randn((700, 33), generator=gen, device=dev) + 0.3
+    got = pairwise.rbf_mmd_sums(P, Q, 20.0)
+    again = pairwise.rbf_mmd_sums(P, Q, 20.0)
+    err = errors(torch, got, pairwise.rbf_mmd_sums_plain(P.double(), Q.double(), 20.0))
+    print(f"[3 K2b MMD Tx=1000 Ty=700 d=33 sigma2=20] abs {err[0]:.3e} rel {err[1]:.3e} "
+          f"(tol rel 1e-5); bits repeat {torch.equal(got, again)}", flush=True)
+    if not (err[1] <= 1e-5 and torch.equal(got, again)):
+        fail("K2b at d=33 disagrees with its float64 plain version, or does not repeat")
+    report["rbf_kernel_sum"] = dict(
+        rows[2], max_abs_err=max(r["max_abs_err"] for r in rows),
+        max_rel_err=max(r["max_rel_err"] for r in rows), shapes=rows)
 
 
 L2_BYTES = 50 * 2**20  # the H100's L2

@@ -110,48 +110,6 @@ __device__ __forceinline__ float act_grad(float z, int act) {
   return 1.f - th * th;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copies 16 (or 4) bytes, or writes zeros when !fill (src is not read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(fill ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool fill) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(fill ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v = hi + lo, both TF32 values rounded to nearest (add half a TF32 ulp,
-// clear the low 13 mantissa bits): the tensor core then reads them exactly,
-// and v keeps ~22 bits. Two integer and one fp32 instruction per half;
-// cvt.rna.tf32.f32 rounds the same way at 13 % more kernel time.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
-}
-
-// c += a (16x8, row) * b (8x8, col) in TF32 with fp32 accumulation.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The weight ring: tile u lives in slot u % kStages. The schedule's tile
 // descriptors are copied to shared memory once (reading a kernel parameter
 // at a varying index is slow); `next` walks them, wrapping from the last

@@ -1,5 +1,10 @@
 from mfm_tpu_torch.drivers.baselines import is_resample
-from mfm_tpu_torch.drivers.eval import evaluate_samples
+from mfm_tpu_torch.drivers.eval import (
+    aggregate_seeds,
+    check_floor,
+    evaluate_samples,
+    report_row,
+)
 from mfm_tpu_torch.drivers.mfm import (
     MFMRun,
     build_mfm,
@@ -12,6 +17,9 @@ from mfm_tpu_torch.drivers.mfm import (
 __all__ = [
     "is_resample",
     "evaluate_samples",
+    "check_floor",
+    "report_row",
+    "aggregate_seeds",
     "MFMRun",
     "build_mfm",
     "next_beta",

@@ -1,14 +1,30 @@
 """End-of-run evaluation (counterpart of ``mfm_tpu.drivers.eval``):
 log-density, Stein discrepancies U/V, and MMD against exact target draws
-when the target has a sampler."""
+when the target has a sampler; the floor of exact draws against themselves,
+the summary-table row and the aggregate over seeds."""
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from mfm_tpu_torch.diagnostics import max_mean_disc, stein_disc
 from mfm_tpu_torch.ops.pairwise import max_mean_disc_fused, stein_disc_fused
 from mfm_tpu_torch.targets.base import Target
+
+
+def _metric_fns(samples: torch.Tensor, fused_metrics: Optional[bool]):
+    """(fused?, stein_fn, mmd_fn). ``None`` resolves to the pairwise CUDA
+    kernels (K2a/K2b) for samples on a CUDA device, at every d, and to the
+    tiled plain-PyTorch statistics otherwise. The reference turns its
+    kernels off at d >= 1024 because they accumulate in fp32
+    (``mfm_tpu/drivers/eval.py:59-62``); the port's kernels add their
+    tiles in fp64 and need no such guard."""
+    if fused_metrics is None:
+        fused_metrics = samples.is_cuda
+    if fused_metrics:
+        return True, stein_disc_fused, max_mean_disc_fused
+    return False, stein_disc, max_mean_disc
 
 
 def evaluate_samples(
@@ -21,19 +37,12 @@ def evaluate_samples(
 ) -> dict:
     """The reference metric row for one run.
 
-    ``fused_metrics`` picks the pairwise CUDA kernels (K2a/K2b). ``None``
-    resolves to ON for samples on a CUDA device with d < 1024, as the
-    reference turns its Pallas kernels on for d < 1024 on a TPU; otherwise
-    the tiled plain-PyTorch path. Every row records which path produced it
-    (``metrics_kernel``). The weighted Stein statistics always take the
-    plain path.
+    ``fused_metrics`` picks the pairwise CUDA kernels (K2a/K2b); ``None``
+    resolves as ``_metric_fns`` says. Every row records which path
+    produced it (``metrics_kernel``). The weighted Stein statistics always
+    take the plain path.
     """
-    if fused_metrics is None:
-        fused_metrics = flow_samples.is_cuda and flow_samples.shape[-1] < 1024
-    if fused_metrics:
-        stein_fn, mmd_fn = stein_disc_fused, max_mean_disc_fused
-    else:
-        stein_fn, mmd_fn = stein_disc, max_mean_disc
+    fused_metrics, stein_fn, mmd_fn = _metric_fns(flow_samples, fused_metrics)
 
     # the wrappers launch the kernels only for CUDA tensors
     out = {"metrics_kernel": "cuda" if fused_metrics and flow_samples.is_cuda else "torch"}
@@ -56,3 +65,40 @@ def evaluate_samples(
     else:
         out["mmd"] = out["mmd_star"] = 0.0
     return out
+
+
+def check_floor(target: Target, real_samples: torch.Tensor,
+                fused_metrics: Optional[bool] = None) -> dict:
+    """Sanity floor: the metrics of exact samples against themselves."""
+    _, stein_fn, mmd_fn = _metric_fns(real_samples, fused_metrics)
+    u, v = stein_fn(real_samples, target.score)
+    return {
+        "logpdf_real": float(torch.mean(target.log_prob(real_samples))),
+        "stein_u_real": float(u),
+        "stein_v_real": float(v),
+        "mmd_real": float(mmd_fn(real_samples, real_samples)),
+    }
+
+
+def report_row(cfg, metrics: dict, train_time: float) -> list:
+    """The summary-table row layout of the reference."""
+    row = [
+        cfg.mcmc_per_flow_steps,
+        cfg.learning_iter,
+        train_time,
+        metrics["logpdf"],
+        metrics["logpdf_star"],
+        metrics["stein_u"],
+        metrics["stein_u_star"],
+        metrics["stein_v"],
+        metrics["stein_v_star"],
+    ]
+    if metrics.get("mmd") is not None:
+        row += [metrics["mmd"], metrics["mmd_star"]]
+    return row
+
+
+def aggregate_seeds(rows: list) -> dict:
+    """mean +/- 1.96 sigma over seeds."""
+    arr = np.asarray(rows, dtype=np.float64)
+    return {"mean": arr.mean(axis=0), "ci95": 1.96 * arr.std(axis=0)}

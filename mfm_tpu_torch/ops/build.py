@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``mfm_tpu_torch/csrc`` have a plain C interface. The
-first call compiles them with ``nvcc`` for ``sm_90a`` into
+first call compiles them with ``nvcc`` for ``sm_90a`` (one process per
+source, side by side) into
 ``build/mfm_tpu_torch/<hash>/libmfm_kernels.so`` (the hash covers the
 sources and the flags, so an edit rebuilds) and loads the library with
 ``ctypes``. Nothing here runs at import time, and nothing falls back: a
@@ -16,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -23,7 +25,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "mfm_tpu_torch"
 SOURCES = ("field.cu", "pairwise.cu", "phi_four.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,12 +36,14 @@ _S = ctypes.c_char_p
 SIGNATURES = {
     # packed, meta (host int*), freqs, x, t, ex, field, gate, dfield, B, K, stream
     "mfm_field_apply": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P)),
-    # X, S, T, d, b, per-tile partials, stream
-    "mfm_stein_partials": (_I, (_P, _P, _I, _I, _F, _P, _P)),
-    # A, Ta, B, Tb, d, inv2s2, per-tile partials, stream
-    "mfm_rbf_partials": (_I, (_P, _I, _P, _I, _I, _F, _P, _P)),
-    # partials, n, out, stream
-    "mfm_reduce_sum": (_I, (_P, _I, _P, _P)),
+    # X, S, T, d, b, items, n_items, partials, counter, out (3), stream
+    "mfm_stein_sum": (_I, (_P, _P, _I, _I, _F, _P, _I, _P, _P, _P, _P)),
+    # X, S, T, d, Tp, dp, mean, Xc, Sp, sq, sxx, stream
+    "mfm_stein_gram_prepare": (_I, (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P)),
+    # Xc, Sp, sq, sxx, T, d, dp, b, items, n_items, partials, counter, out (3), stream
+    "mfm_stein_gram_sum": (_I, (_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _P, _P)),
+    # P0, T0, P1, T1, d, inv2s2, items, n_items, end0, end1, partials, counter, out (3), stream
+    "mfm_rbf_mmd_sums": (_I, (_P, _I, _P, _I, _I, _F, _P, _I, _I, _I, _P, _P, _P, _P)),
     "mfm_pairwise_tile": (_I, ()),
     # x, B, d, coef, inv4c, beta, pbc, bc_value, value, score (or NULL), stream
     "mfm_phi_four": (_I, (_P, _I, _I, _F, _F, _F, _I, _F, _P, _P, _P)),
@@ -79,17 +83,30 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc, tmp = _nvcc(), work / lib.name
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+
+    def run(cmd):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return proc.returncode, f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+
+    # one nvcc per source, all at once, then the link
+    objects = [str(work / f"{Path(s).stem}.o") for s in SOURCES]
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        results = list(pool.map(
+            lambda so: run([nvcc, *NVCC_FLAGS, "-c", "-o", so[1], str(CSRC / so[0])]),
+            zip(SOURCES, objects),
+        ))
+    if not any(rc for rc, _ in results):
+        results.append(run([nvcc, "-shared", "-o", str(tmp), *objects]))
+    log = "".join(text for _, text in results)
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if any(rc for rc, _ in results):
+        shutil.rmtree(work)
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    shutil.rmtree(work)
     if verbose:
         print(log, f"built in {time.perf_counter() - t0:.1f} s", sep="\n")
     return lib

@@ -15,8 +15,10 @@ to fp64 on the card, as cuBLAS's fp32; tests/test_torch_field.py emulates
 the split), in another order than cuBLAS's; a relu unit whose z lies
 within ~1e-7 of 0 may take the other side of the kink, which these seeds
 do not meet; K2a/K2b to
-1e-4 relative -- the kernel takes differences directly and reduces in
-fp64, the plain version takes Gram products in fp32 tiles; K3 and its
+1e-5 relative to the float64 plain version (fp32 terms of one
+rsqrt.approx / ex2.approx a pair, summed in fp64; the Gram route as the
+test says), the fp32 plain version itself to 1e-4 of it (its Gram
+products in fp32 tiles); K3 and its
 Hessian-vector product to 1e-5 relative -- fp32 sums of d terms in another
 order (warp shuffles), and the same per-site stencil; the fused score
 gate to 1e-5 relative -- the same sums of three terms per site.
@@ -136,31 +138,119 @@ def test_kernel_transport_matches_module_transport(cuda):
         assert float((a - b).abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("T,d", [(1000, 3), (300, 64), (64, 2), (65, 70)])
-def test_stein_kernel_matches_plain(cuda, T, d):
+WIDE = pairwise.GRAM_MIN_D  # from this d on the Stein sum takes the tensor cores
+
+
+@pytest.mark.parametrize("T,d,beta", [
+    (1000, 3, -0.5), (300, 64, -0.5), (64, 2, -0.5), (65, 70, -0.5),
+    (300, WIDE - 1, -0.5), (300, WIDE, -0.5),  # each side of the route threshold
+    (257, 1600, -0.5),
+    (1000, 3, -0.3), (300, 64, -0.3), (257, 200, -0.3),  # the general-b instances
+])
+def test_stein_kernel_matches_plain(cuda, T, d, beta):
+    """Against the plain version in float64, relative to the sum: 1e-5 on
+    the differences routes; on the Gram route the larger of that and the
+    fp32 plain version's own error (both take the Gram form)."""
     gen = torch.Generator(device=cuda).manual_seed(T + d)
     X = 2.0 * torch.randn((T, d), generator=gen, device=cuda)
     S = -X / 4.0 + 0.1 * torch.randn((T, d), generator=gen, device=cuda)
     before = pairwise.stein_pairwise_sum.launches
-    got = pairwise.stein_pairwise_sum(X, S)
-    again = pairwise.stein_pairwise_sum(X, S)
-    ref = pairwise.stein_pairwise_sum_plain(X, S)
+    got = pairwise.stein_pairwise_sum(X, S, beta)
+    again = pairwise.stein_pairwise_sum(X, S, beta)
+    ref = float(pairwise.stein_pairwise_sum_plain(X.double(), S.double(), beta))
+    plain = float(pairwise.stein_pairwise_sum_plain(X, S, beta))
     assert pairwise.stein_pairwise_sum.launches == before + 2
     assert got.dtype == torch.float64
-    assert float(got) == float(again)  # a fixed reduction order: bitwise repeatable
-    assert abs(float(got) - float(ref)) <= RTOL * abs(float(ref))
+    assert torch.equal(got, again)  # a fixed reduction order: bitwise repeatable
+    if d < WIDE:
+        assert abs(plain - ref) <= RTOL * abs(ref)
+    tol = max(1e-5, abs(plain - ref) / abs(ref)) if d >= WIDE else 1e-5
+    assert abs(float(got) - ref) <= tol * abs(ref)
 
 
-@pytest.mark.parametrize("Ta,Tb,d", [(1000, 700, 2), (300, 300, 33), (1, 65, 4)])
+@pytest.mark.parametrize("route", ["diff", "gram"])
+def test_stein_routes_agree(cuda, route):
+    """Either route takes any d: both against float64 at a d between them."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    X = 1.5 * torch.randn((333, 96), generator=gen, device=cuda) + 3.0
+    S = -X / 2.0 + 0.3 * torch.randn((333, 96), generator=gen, device=cuda)
+    ref = float(pairwise.stein_pairwise_sum_plain(X.double(), S.double()))
+    got = float(pairwise.stein_pairwise_sum(X, S, route=route))
+    assert abs(got - ref) <= 1e-5 * abs(ref)
+
+
+def test_stein_gram_route_on_two_far_modes(cuda):
+    """Modes at +-8 in every coordinate: the centring removes no offset, the
+    norms are 65 times a within-mode distance, and the Gram route still
+    holds 1e-5 of float64."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    modes = 8.0 * (2.0 * torch.randint(0, 2, (700, 1), generator=gen, device=cuda) - 1.0)
+    X = torch.randn((700, 64), generator=gen, device=cuda) + modes
+    S = modes - X
+    ref = float(pairwise.stein_pairwise_sum_plain(X.double(), S.double()))
+    assert abs(float(pairwise.stein_pairwise_sum(X, S)) - ref) <= 1e-5 * abs(ref)
+
+
+@pytest.mark.parametrize("Ta,Tb,d", [
+    (1000, 700, 2), (300, 300, 33), (1, 65, 4),
+    (1000, None, 2), (300, None, 33), (130, None, 3),  # A with itself: half the pairs
+])
 def test_rbf_kernel_matches_plain(cuda, Ta, Tb, d):
-    gen = torch.Generator(device=cuda).manual_seed(Ta + Tb + d)
+    gen = torch.Generator(device=cuda).manual_seed(Ta + (Tb or 0) + d)
     A = 1.5 * torch.randn((Ta, d), generator=gen, device=cuda)
-    Bm = 1.5 * torch.randn((Tb, d), generator=gen, device=cuda) + 0.3
+    Bm = A if Tb is None else 1.5 * torch.randn((Tb, d), generator=gen, device=cuda) + 0.3
     before = pairwise.rbf_kernel_sum.launches
     got = pairwise.rbf_kernel_sum(A, Bm)
-    ref = pairwise.rbf_kernel_sum_plain(A, Bm)
-    assert pairwise.rbf_kernel_sum.launches == before + 1
-    assert abs(float(got) - float(ref)) <= RTOL * abs(float(ref))
+    again = pairwise.rbf_kernel_sum(A, Bm)
+    ref = float(pairwise.rbf_kernel_sum_plain(A.double(), Bm.double()))
+    assert pairwise.rbf_kernel_sum.launches == before + 2
+    assert got.dtype == torch.float64 and torch.equal(got, again)
+    assert abs(float(pairwise.rbf_kernel_sum_plain(A, Bm)) - ref) <= RTOL * abs(ref)
+    assert abs(float(got) - ref) <= 1e-5 * abs(ref)
+    if Tb is None:  # an equal copy takes every ordered pair: the same sum
+        full = pairwise.rbf_kernel_sum(A, A.clone())
+        assert abs(float(full) - float(got)) <= 1e-6 * abs(ref)
+
+
+@pytest.mark.parametrize("Tx,Ty,d,sigma2", [(1000, 700, 2, 1.0), (300, 300, 33, 20.0),
+                                            (65, 1, 4, 0.5)])
+def test_rbf_mmd_sums_match_plain(cuda, Tx, Ty, d, sigma2):
+    """The three sums of an MMD from one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(Tx + Ty + d)
+    X = 1.5 * torch.randn((Tx, d), generator=gen, device=cuda)
+    Y = 1.5 * torch.randn((Ty, d), generator=gen, device=cuda) + 0.3
+    before = pairwise.rbf_kernel_sum.launches
+    got = pairwise.rbf_mmd_sums(X, Y, sigma2)
+    again = pairwise.rbf_mmd_sums(X, Y, sigma2)
+    ref = pairwise.rbf_mmd_sums_plain(X.double(), Y.double(), sigma2)
+    assert pairwise.rbf_kernel_sum.launches == before + 2
+    assert got.dtype == torch.float64 and got.shape == (3,) and torch.equal(got, again)
+    assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+    single = torch.stack([pairwise.rbf_kernel_sum(X, X, sigma2),
+                          pairwise.rbf_kernel_sum(Y, Y, sigma2),
+                          pairwise.rbf_kernel_sum(X, Y, sigma2)])
+    assert torch.equal(got, single) or float(((got - single).abs() / ref.abs()).max()) <= 1e-12
+
+
+@pytest.mark.parametrize("d", [2, 1600])
+def test_evaluate_samples_takes_the_kernels_at_every_d(cuda, d):
+    from mfm_tpu_torch.drivers import check_floor, evaluate_samples
+
+    target = four_mode_mixture(cuda) if d == 2 else PhiFour(d)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    X = 0.5 * torch.randn((130, d), generator=gen, device=cuda)
+    counters = (pairwise.stein_pairwise_sum, pairwise.rbf_kernel_sum)
+    before = [f.launches for f in counters]
+    row = evaluate_samples(target, X, X + 0.01)
+    assert row["metrics_kernel"] == "cuda"
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 0]
+    on_cpu = four_mode_mixture() if d == 2 else target
+    assert evaluate_samples(on_cpu, X.cpu(), X.cpu())["metrics_kernel"] == "torch"
+    floor = check_floor(target, X)
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 1]
+    plain = check_floor(target, X, fused_metrics=False)
+    for k, v in plain.items():
+        assert abs(floor[k] - v) <= RTOL * max(abs(plain["stein_v_real"]), abs(v)), k
 
 
 def test_fused_metrics_match_plain_statistics(cuda):

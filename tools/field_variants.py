@@ -126,7 +126,8 @@ extern "C" float mma_peak_ms(int blocks, int threads, int iters) {
 
 
 def source(subs):
-    src = SRC.replace('#include "common.cuh"', f'#include "{build.CSRC / "common.cuh"}"')
+    # the shared helpers inline, so that a substitution may reach them
+    src = SRC.replace('#include "common.cuh"', (build.CSRC / "common.cuh").read_text())
     for old, new in subs:
         if src.count(old) != 1:
             raise SystemExit(f"field_variants: the source no longer holds {old!r}")
@@ -137,7 +138,7 @@ def source(subs):
 def compile_lib(name, src):
     cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
     cu.write_text(src)
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode:
