@@ -11,10 +11,15 @@ own; any failure exits non-zero before the final line:
 3. each kernel against its plain PyTorch version at the slice's shapes:
    K1 primal and with K=64 tangents (B=1024, d=64, widths 128, F=128,
    relu, every parameter perturbed so the heads are non-zero), K2a at
-   (1024, 64), (12800, 2), (12800, 64) and (12800, 1600), at a d on each
+   (1024, 64), (12800, 2), (12800, 64) and (12800, 1600), at the eval
+   shapes of pines (128, 1600; distinct points and an IS-resampled set with
+   repeats), many-well (12800, 32; both routes) and funnel (12800, 10), on
+   two modes at +-16 and +-32 (the route the data picks, within 1e-5 of
+   float64), with what the route's bound costs, at a d on each
    side of its route threshold with a ragged T, and at beta = -0.3; K2b at
    (12800, 2) between two point sets, of one with itself, as the three
-   sums of an MMD in one launch, and ragged at d = 33 (K2a and K2b against
+   sums of an MMD in one launch, at d = 10 and 32 on funnel and many-well
+   draws, and ragged at d = 33 (K2a and K2b against
    their plain versions in float64, every call twice for equal bits, and
    no slower than before their redesign); K3 (value and score) at
    (1024, 64) Dirichlet, (1024, 64) periodic and (37, 64) with the ends at
@@ -39,16 +44,33 @@ own; any failure exits non-zero before the final line:
    included), B=16, d=64;
 5. the phi-four preset as shipped, through mfm_tpu_torch.cli.main (d=64,
    1024 chains, 128-wide trunks, the bf16 field, exact divergence, 24 RK4
-   steps, PhiFour on K3, 500 iterations), with the ESS of the final IS
+   steps, PhiFour on K3, 200 iterations), with the ESS of the final IS
    weights;
 6. the same with the 'phifour' reference (--ref-dist phifour), 100
    iterations;
 7. the same with the fused fp32 field (field_precision=highest,
    pallas_field=true), 300 iterations;
-8. a 4-mode run through the same entry point (reaches the MMD kernel).
+8. a 4-mode run through the same entry point (reaches the MMD kernel), 100
+   iterations;
+9. pines as shipped at full width (d=1600, 128 chains, trunks 1024, the bf16
+   field, Hutchinson, the 'prior' reference, Rademacher eval probes), 120
+   iterations: K2a at its eval;
+10. many-well (d=32, 120 iterations) and 11. funnel (d=10, 100): K2a, and
+   K2b's general kernel for the MMD against exact draws;
+12. many-well on the fused fp32 field (K1 at d=32), 120 iterations;
+13. gaussian-mixture, 60 iterations;
+14-16. 4-mode with the CIS flow kernel (4 candidates), with independence
+   MH, and with the minibatch-OT coupling, 30 iterations each.
 
-The launch counters are zeroed just before phase 5 and read after phase 8:
-every kernel must have been launched by the main path. The line before
+The iteration counts are a small fraction of the presets' (the depth is cut
+so that the whole script stays well inside its time limit on a slow host);
+a run this short can still diverge for a few of its 12,800 flow samples,
+which makes its row non-finite: many-well with seed 0 does at 100 and 150
+iterations, on either field, and not at 120 or 200.
+
+The launch counters are zeroed just before phase 5 and read after the last
+phase: every kernel must have been launched by the main path, and each
+phase by the kernels it names. The line before
 last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -355,47 +377,81 @@ def phase_pairwise(torch, report, gen):
     float64 (both take the Gram form's cancellation). Every kernel call is
     made twice and must return the same bits."""
     from mfm_tpu_torch.ops import pairwise
-    from mfm_tpu_torch.targets import PhiFour, four_mode_mixture
+    from mfm_tpu_torch.targets import (
+        Funnel, LogGaussianCoxPines, ManyWell, PhiFour, four_mode_mixture,
+    )
 
     dev = torch.device("cuda")
     four = four_mode_mixture(dev)
     gauss = lambda scale: (lambda T, D: scale * torch.randn((T, D), generator=gen, device=dev))
     old = pairwise_inputs(torch)
     wide = pairwise.GRAM_MIN_D
-    stein_cases = [  # (T, d, score, draw, beta, timed)
-        (1024, 64, PhiFour(64).score, lambda T, D: old["K2a T=1024 d=64"][0], -0.5, True),
-        (12800, 2, four.score, lambda T, D: old["K2a T=12800 d=2"][0], -0.5, True),
-        (12800, 64, PhiFour(64).score, gauss(0.5), -0.5, True),
-        (12800, 1600, lambda x: -x, gauss(1.0), -0.5, True),
-        (1000, wide - 1, lambda x: -x, gauss(1.0), -0.5, False),  # each side of the route
-        (1000, wide, lambda x: -x, gauss(1.0), -0.5, False),      # threshold, ragged T
-        (1000, 3, lambda x: -x / 4.0, gauss(2.0), -0.3, False),   # the general-b instances
-        (300, 200, lambda x: -x, gauss(1.0), -0.3, False),
+    cox, wells, funnel = LogGaussianCoxPines(1600, device=dev), ManyWell(32), Funnel(10)
+    exact = lambda target: (lambda T, D: target.sample(gen, (T,)))
+    pines = lambda T, D: cox.prior_sample(gen, (T,))
+    # an IS-resampled set: 4 distinct points, each 32 times
+    resampled = lambda T, D: pines(4, D)[torch.arange(T, device=dev) // (T // 4)]
+    centres = {}
+
+    def two_modes(offset):  # unit Gaussians at +-offset in every coordinate
+        def draw(T, D):
+            centres[offset] = offset * (2.0 * torch.randint(
+                0, 2, (T, 1), generator=gen, device=dev) - 1.0)
+            return centres[offset] + torch.randn((T, D), generator=gen, device=dev)
+        return draw, lambda x: centres[offset] - x
+
+    (far16, score16), (far32, score32) = two_modes(16.0), two_modes(32.0)
+    # the route each shape must take: the Gram form wherever it was taken
+    # before the route looked at the data, the differences form for repeated
+    # points and far modes; None where either is right
+    stein_cases = [  # (T, d, score, draw, beta, timed, route)
+        (1024, 64, PhiFour(64).score, lambda T, D: old["K2a T=1024 d=64"][0], -0.5, True, "gram"),
+        (12800, 2, four.score, lambda T, D: old["K2a T=12800 d=2"][0], -0.5, True, "diff"),
+        (12800, 64, PhiFour(64).score, gauss(0.5), -0.5, True, "gram"),
+        (12800, 1600, lambda x: -x, gauss(1.0), -0.5, True, "gram"),
+        (128, 1600, cox.score, pines, -0.5, True, "gram"),       # pines' eval, distinct points
+        (128, 1600, cox.score, resampled, -0.5, False, "diff"),  # and its IS-resampled set
+        (12800, 32, wells.score, exact(wells), -0.5, True, None),      # many-well's eval
+        (12800, 10, funnel.score, exact(funnel), -0.5, True, "diff"),  # funnel's eval
+        (12800, 32, score16, far16, -0.5, False, "diff"),
+        (12800, 64, score32, far32, -0.5, False, "diff"),
+        (1000, wide - 1, lambda x: -x, gauss(1.0), -0.5, False, "diff"),  # each side of the
+        (1000, wide, lambda x: -x, gauss(1.0), -0.5, False, "gram"),  # threshold, ragged T
+        (1000, 3, lambda x: -x / 4.0, gauss(2.0), -0.3, False, "diff"),  # the general-b instances
+        (300, 200, lambda x: -x, gauss(1.0), -0.3, False, "gram"),
     ]
     rows = []
-    for T, D, score, draw, beta, timed in stein_cases:
+    for T, D, score, draw, beta, timed, expect in stein_cases:
         X = draw(T, D).contiguous()
         S = score(X).contiguous()
-        route = "gram" if D >= wide else "diff"
         kern = lambda: pairwise.stein_pairwise_sum(X, S, beta)
         ref = pairwise.stein_pairwise_sum_plain(X.double(), S.double(), beta)
         plain32 = pairwise.stein_pairwise_sum_plain(X, S, beta)
+        counts = pairwise.stein_pairwise_sum.route_counts
+        before = dict(counts)
         got, again = kern(), kern()
         torch.cuda.synchronize()
+        # the route both calls took: by d and, from GRAM_MIN_D on, the data
+        (route,) = [k for k in counts if counts[k] == before[k] + 2]
         err, plain_err = errors(torch, got, ref), errors(torch, plain32, ref)
-        tol = max(1e-5, plain_err[1]) if route == "gram" else 1e-5
+        tol = 1e-5
         label = f"K2a T={T} d={D}" + ("" if beta == -0.5 else f" beta={beta}")
         line = (f"[3 {label} {route}] abs {err[0]:.3e} rel {err[1]:.3e} (tol rel {tol:.1e}; "
                 f"plain fp32 rel {plain_err[1]:.3e}); bits repeat {torch.equal(got, again)}")
         if not (err[1] <= tol and torch.equal(got, again)):
             print(line, flush=True)
             fail(f"{label} disagrees with its float64 plain version, or does not repeat")
+        if expect not in (None, route):
+            fail(f"{label}: took the {route} route, must take {expect}")
         row = dict(shape=f"T={T} d={D}", form=route, max_abs_err=err[0], max_rel_err=err[1],
                    tol_rel=tol)
         if timed:
             plain = lambda: pairwise.stein_pairwise_sum_plain(X, S, beta)
             big = T * D > 1e6
-            ms, plain_ms = in_turns(torch, kern, plain, 5 if big else 50, 3 if big else 5)
+            # the route by name: the kernel's own time, with no read-back of
+            # the route's bound between the queued launches
+            named = lambda: pairwise.stein_pairwise_sum(X, S, beta, route=route)
+            ms, plain_ms = in_turns(torch, named, plain, 5 if big else 50, 3 if big else 5)
             # per unordered pair: three length-D products (x.x, s.s and the
             # cross terms) and ~12 operations for the IMQ terms
             bnd = pair_bound(torch, T * (T + 1) // 2, 6 * D + 12, 4 * 2 * T * D + 8)
@@ -406,13 +462,22 @@ def phase_pairwise(torch, report, gen):
                      f"ms ({bnd['bound_pipe']}; fp32 {bnd['bound_fp32_ms']:.4f}, 3xTF32 "
                      f"{bnd['bound_3xtf32_ms']:.4f}), share {row['share_of_bound']:.3f}"
                      + (f" (of 3xTF32 {row['share_of_3xtf32_bound']:.3f})" if route == "gram" else ""))
-            if D >= wide or D == 64:  # the other route at the same shape
+            if D >= wide:  # the other route at the same shape, and the bound's cost
                 other = "diff" if route == "gram" else "gram"
                 alt = lambda: pairwise.stein_pairwise_sum(X, S, beta, route=other)
                 alt_err = errors(torch, alt(), ref)
                 row["other_route_ms"] = cuda_ms(torch, alt, 3 if big else 20, True)
                 line += (f"; the {other} route {row['other_route_ms']:.4f} ms "
                          f"(rel {alt_err[1]:.3e})")
+                # what the bound costs a call (a product of 64 rows with all
+                # rows, and a scalar read back): host-paced calls, with and without
+                named_ms = min(cuda_ms(torch, named, 5 if big else 50),
+                               cuda_ms(torch, named, 5 if big else 50))
+                default_ms = min(cuda_ms(torch, kern, 5 if big else 50),
+                                 cuda_ms(torch, kern, 5 if big else 50))
+                row.update(route_bound_ms=default_ms - named_ms, host_paced_ms=default_ms)
+                line += (f"; not queued: {default_ms:.4f} ms with the route's bound, "
+                         f"{named_ms:.4f} ms with the route named")
             rows.append(row)
         print(line, flush=True)
         if timed and not row["share_of_bound"] <= 1.0:
@@ -421,31 +486,42 @@ def phase_pairwise(torch, report, gen):
         if parent is not None and not row["ms"] <= parent:
             fail(f"{label}: {row['ms']:.4f} ms, slower than before its redesign ({parent} ms)")
     main = rows[1]  # the eval of the 4-mode run; every shape under "shapes"
+
     report["stein_pairwise_sum"] = dict(
         main, max_abs_err=max(r["max_abs_err"] for r in rows),
         max_rel_err=max(r["max_rel_err"] for r in rows), shapes=rows)
 
     T = 12800
     A, Bm = old["K2b Ta=Tb=12800 d=2"]
-    nbytes = 4 * 2 * T * 2 + 8
-    rbf_cases = [  # (label, kernel, float64 plain, fp32 plain, pairs, bytes)
-        ("K2b Ta=Tb=12800 d=2", lambda: pairwise.rbf_kernel_sum(A, Bm),
-         lambda a, b: pairwise.rbf_kernel_sum_plain(a, b), T * T, nbytes),
-        ("K2b A=B T=12800 d=2", lambda: pairwise.rbf_kernel_sum(A, A),
-         lambda a, b: pairwise.rbf_kernel_sum_plain(a, a), T * (T + 1) // 2, nbytes // 2),
-        ("K2b MMD T=12800 d=2", lambda: pairwise.rbf_mmd_sums(A, Bm),
-         lambda a, b: pairwise.rbf_mmd_sums_plain(a, b), T * T + T * (T + 1), nbytes),
+    W1, W2 = (wells.sample(gen, (T,)).contiguous() for _ in range(2))  # many-well's MMD, d=32
+    F1, F2 = (funnel.sample(gen, (T,)).contiguous() for _ in range(2))  # funnel's, d=10
+    between = (lambda p, q: pairwise.rbf_kernel_sum(p, q),
+               lambda p, q: pairwise.rbf_kernel_sum_plain(p, q), T * T, 2)
+    itself = (lambda p, q: pairwise.rbf_kernel_sum(p, p),
+              lambda p, q: pairwise.rbf_kernel_sum_plain(p, p), T * (T + 1) // 2, 1)
+    mmd = (lambda p, q: pairwise.rbf_mmd_sums(p, q),
+           lambda p, q: pairwise.rbf_mmd_sums_plain(p, q), T * T + T * (T + 1), 2)
+    rbf_cases = [  # (label, the two point sets, (kernel, plain, pairs, point sets read))
+        ("K2b Ta=Tb=12800 d=2", A, Bm, between),
+        ("K2b A=B T=12800 d=2", A, Bm, itself),
+        ("K2b MMD T=12800 d=2", A, Bm, mmd),
+        ("K2b Ta=Tb=12800 d=32", W1, W2, between),  # rbf_general_kernel from here on
+        ("K2b MMD T=12800 d=32", W1, W2, mmd),
+        ("K2b Ta=Tb=12800 d=10", F1, F2, between),
+        ("K2b MMD T=12800 d=10", F1, F2, mmd),
     ]
     rows = []
-    for label, kern, plain, pairs, nb in rbf_cases:
+    for label, P0, P1, (kernel, plain, pairs, n_sets) in rbf_cases:
+        D = P0.shape[1]
+        kern = lambda: kernel(P0, P1)
         got, again = kern(), kern()
-        ref = plain(A.double(), Bm.double())
+        ref = plain(P0.double(), P1.double())
         torch.cuda.synchronize()
         err = max(errors(torch, g, r) for g, r in zip(got.reshape(-1), ref.reshape(-1)))
-        ms, plain_ms = in_turns(torch, kern, lambda: plain(A, Bm), 50, 5)
-        # per pair: a squared distance over d=2 (a subtraction and a
+        ms, plain_ms = in_turns(torch, kern, lambda: plain(P0, P1), 50 if D <= 4 else 10, 5)
+        # per pair: a squared distance over d (a subtraction and a
         # multiply-add a dimension), an exp and an add
-        bnd = pair_bound(torch, pairs, 3 * 2 + 2, nb)
+        bnd = pair_bound(torch, pairs, 3 * D + 2, 4 * n_sets * T * D + 8)
         row = dict(shape=label[4:], max_abs_err=err[0], max_rel_err=err[1], ms=ms,
                    plain_ms=plain_ms, library_ms=None, **bnd, share_of_bound=bnd["bound_ms"] / ms)
         rows.append(row)
@@ -694,29 +770,41 @@ def main():
                 phi_four.phi_four_value_and_score, phi_four.phi_four_score_gate)
     for fn in counters:
         fn.launches = 0
-    phases = [
-        (["--example", "phi-four", "--seed", "0", "--learning-iter", "500"], "5 phi-four"),
-        (["--example", "phi-four", "--seed", "0", "--learning-iter", "100",
-          "--ref-dist", "phifour"], "6 phi-four phifour-ref"),
-        (["--example", "phi-four", "--seed", "0", "--learning-iter", "300",
-          "--set", "field_precision=highest", "--set", "pallas_field=true"],
-         "7 phi-four fused field"),
-        (["--example", "4-mode", "--seed", "0", "--learning-iter", "200"], "8 4-mode"),
+    K1, K2A, K2B, K3, GATE = (f.__name__ for f in counters)
+    fused = ["--set", "field_precision=highest", "--set", "pallas_field=true"]
+    short = ["--example", "4-mode", "--learning-iter", "30"]
+    phases = [  # (arguments after --seed 0, label, the kernels the run must launch)
+        (["--example", "phi-four", "--learning-iter", "200"], "5 phi-four", (K3, GATE, K2A)),
+        (["--example", "phi-four", "--learning-iter", "100", "--ref-dist", "phifour"],
+         "6 phi-four phifour-ref", (K3, GATE, K2A)),
+        (["--example", "phi-four", "--learning-iter", "300", *fused],
+         "7 phi-four fused field", (K1, K3, GATE, K2A)),
+        (["--example", "4-mode", "--learning-iter", "100"], "8 4-mode", (K2A, K2B)),
+        (["--example", "pines", "--learning-iter", "120"], "9 pines", (K2A,)),
+        (["--example", "many-well", "--learning-iter", "120"], "10 many-well", (K2A, K2B)),
+        (["--example", "funnel", "--learning-iter", "100"], "11 funnel", (K2A, K2B)),
+        (["--example", "many-well", "--learning-iter", "120", *fused],
+         "12 many-well fused field", (K1, K2A, K2B)),
+        (["--example", "gaussian-mixture", "--learning-iter", "60"], "13 gaussian-mixture",
+         (K2A, K2B)),
+        ([*short, "--num-importance-samples", "4"], "14 4-mode CIS", (K2A, K2B)),
+        ([*short, "--num-importance-samples", "-1"], "15 4-mode independence MH",
+         (K2A, K2B)),
+        ([*short, "--ot-cond-flow"], "16 4-mode OT coupling", (K2A, K2B)),
     ]
-    for argv, label in phases:
+    for argv, label, must in phases:
         before = [f.launches for f in counters]
-        run_cli(argv, label)
+        routes = dict(pairwise.stein_pairwise_sum.route_counts)
+        run_cli(["--seed", "0", *argv], label)
         n = {f.__name__: f.launches - b for f, b in zip(counters, before)}
-        print(f"[{label.split()[0]} launches] " + " ".join(f"{k}={v}" for k, v in n.items()),
-              flush=True)
-        # every phi^4 transport takes the fused score gate; 4-mode, the
-        # generic one (and the pairwise kernels at eval)
-        if "phi-four" in label and not n["phi_four_score_gate"]:
-            fail(f"{label}: no transport went through the fused score gate")
-        if "4-mode" in label and not (n["stein_pairwise_sum"] and n["rbf_kernel_sum"]):
-            fail(f"{label}: the eval kernels were not launched")
+        took = {k: v - routes[k] for k, v in pairwise.stein_pairwise_sum.route_counts.items()}
+        print(f"[{label.split()[0]} launches] " + " ".join(f"{k}={v}" for k, v in n.items())
+              + f"; K2a routes {took}", flush=True)
+        missing = [k for k in must if not n[k]]
+        if missing:
+            fail(f"{label}: the run launched no {', '.join(missing)}")
     launches = {f.__name__: f.launches for f in counters}
-    print(f"[5-8 launches] {json.dumps(launches)}", flush=True)
+    print(f"[main path launches] {json.dumps(launches)}", flush=True)
     if not all(launches.values()):
         fail(f"a kernel of the main path was never launched: {launches}")
 

@@ -3,11 +3,17 @@
     python -m mfm_tpu_torch.cli --example 4-mode --seed 0 --learning-iter 200
     python -m mfm_tpu_torch.cli --example phi-four --seed 0 --learning-iter 500
     python -m mfm_tpu_torch.cli --example phi-four --seed 0 --ref-dist phifour
+    python -m mfm_tpu_torch.cli --example pines --seed 0 --learning-iter 300
 
-Each example runs its preset as ``mfm_tpu`` ships it (phi-four: the bf16
-field, ``field_precision='default'``); ``--set`` overrides any config field,
-e.g. ``--set field_precision=highest --set pallas_field=true`` for the
-fused fp32 field kernel.
+Each example runs its preset as ``mfm_tpu`` ships it (phi-four and pines:
+the bf16 field, ``field_precision='default'``; pines: the 'prior'
+reference); ``--set`` overrides any config field, e.g.
+``--set field_precision=highest --set pallas_field=true`` for the fused
+fp32 field kernel, ``--set divergence_mode=exact_disc`` for the discrete
+map's exact logdet. ``--num-importance-samples N`` picks the flow kernel
+(N > 0 CIS, N < 0 independence MH, 0 pullback RWM), ``--ot-cond-flow`` the
+minibatch-OT coupling, ``--no-cond-flow`` the path to a standard normal,
+``--check`` adds the metrics of exact draws against themselves.
 
 Trains, samples through the flow with the IS correction, evaluates, and
 prints the reference's metric row (logpdf / KSD-U / KSD-V / MMD / time; the
@@ -19,24 +25,35 @@ reference's seeds i**10, i < 10. The run needs the device it is given
 import argparse
 import ast
 import dataclasses
+import functools
 import logging
 
 import numpy as np
 import torch
 
 from mfm_tpu_torch.config import MFMConfig, preset
-from mfm_tpu_torch.drivers import evaluate_samples, run_mfm, sample_flow
+from mfm_tpu_torch.drivers import check_floor, evaluate_samples, run_mfm, sample_flow
 from mfm_tpu_torch.drivers.mfm import ess_of, make_generator
-from mfm_tpu_torch.targets import PhiFour, four_mode_mixture, random_mixture
+from mfm_tpu_torch.targets import (
+    Funnel,
+    LogGaussianCoxPines,
+    ManyWell,
+    PhiFour,
+    four_mode_mixture,
+    random_mixture,
+)
 
 log = logging.getLogger("mfm_tpu_torch")
 
+# example -> factory(device=...) of its target, built on the run's device
 EXAMPLES = {
     "4-mode": four_mode_mixture,
     "gaussian-mixture": random_mixture,
-    "phi-four": lambda device: PhiFour(64),
+    "phi-four": functools.partial(PhiFour, 64),
+    "pines": functools.partial(LogGaussianCoxPines, 1600),
+    "funnel": functools.partial(Funnel, 10),
+    "many-well": functools.partial(ManyWell, 32),
 }
-NOT_PORTED_EXAMPLES = ("pines", "funnel", "many-well")
 # flags of the reference CLI whose code paths are not ported yet, with the
 # reference's defaults (any other value is refused)
 NOT_PORTED_FLAGS = {
@@ -71,11 +88,12 @@ def _parse_set(items):
     return out
 
 
-def run_one(target, cfg, device) -> dict:
+def run_one(target, cfg, device, check: bool = False) -> dict:
     """One seed: train, sample, evaluate. Returns the metric row with
     ``train_time``, ``it_per_s``, and the IS weights' ESS and the number of
     distinct resampled points (``is_ess``, ``is_unique``), which say how
-    far the ``*_star`` row rests on a few points."""
+    far the ``*_star`` row rests on a few points. ``check`` adds the floor:
+    the metrics of the exact draws against themselves (``*_real``)."""
     n_eval = cfg.eval_iter * cfg.num_chain
     real_samples = None
     if target.can_sample:
@@ -85,6 +103,10 @@ def run_one(target, cfg, device) -> dict:
         run, n_eval, target, make_generator(device, cfg.seed, 999)
     )
     metrics = evaluate_samples(target, flow_samples, exact_samples, real_samples)
+    if check and real_samples is not None:
+        floor = check_floor(target, real_samples)
+        log.info(" ".join(f"{k}={v:.4g}" for k, v in floor.items()))
+        metrics.update(floor)
     metrics["is_ess"] = float(ess_of(log_w))
     metrics["is_unique"] = int(torch.unique(exact_samples, dim=0).shape[0])
     metrics["train_time"] = run.train_time
@@ -99,8 +121,7 @@ def main(argv=None):
         level=logging.INFO,
     )
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--example", default="4-mode",
-                   choices=[*EXAMPLES, *NOT_PORTED_EXAMPLES])
+    p.add_argument("--example", default="4-mode", choices=list(EXAMPLES))
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--seed", type=int, default=None,
@@ -108,13 +129,20 @@ def main(argv=None):
     p.add_argument("--mcmc-per-flow-steps", type=float, default=10.0)
     p.add_argument("--learning-iter", type=int, default=None)
     p.add_argument("--num-chain", type=int, default=None)
+    p.add_argument("--num-importance-samples", type=int, default=0,
+                   help="flow kernel: > 0 CIS with that many candidates, < 0 "
+                        "independence MH, 0 pullback random-walk MH")
     p.add_argument("--hutchs", action="store_true")
     p.add_argument("--step-size", type=float, default=None)
     p.add_argument("--learning-rate", type=float, default=None)
     p.add_argument("--ref-dist", default=None,
                    help="flow reference (default: preset choice)")
+    p.add_argument("--no-cond-flow", action="store_true")
+    p.add_argument("--ot-cond-flow", action="store_true")
     p.add_argument("--ode-steps", type=int, default=None)
     p.add_argument("--alpha", type=float, default=None)
+    p.add_argument("--check", action="store_true",
+                   help="also report the metrics of exact draws against themselves")
     p.add_argument("--chunk-size", type=int, default=None)
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any MFMConfig field (repeatable)")
@@ -126,8 +154,6 @@ def main(argv=None):
             p.add_argument(name, type=type(default), default=default, help="not ported yet")
     args = p.parse_args(argv)
 
-    if args.example in NOT_PORTED_EXAMPLES:
-        raise SystemExit(f"--example {args.example} is not ported yet")
     # `!=` against each flag's own default: `True in (False, 0, 1.0)` holds
     given = [f for f, default in NOT_PORTED_FLAGS.items() if getattr(args, f) != default]
     if given:
@@ -137,11 +163,16 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
 
-    overrides = {"mcmc_per_flow_steps": args.mcmc_per_flow_steps}
+    overrides = {"mcmc_per_flow_steps": args.mcmc_per_flow_steps,
+                 "num_importance_samples": args.num_importance_samples}
     if args.ref_dist is not None:
         overrides["ref_dist"] = args.ref_dist
     if args.hutchs:
         overrides["hutchinson"] = True
+    if args.no_cond_flow:
+        overrides["cond_flow"] = False
+    if args.ot_cond_flow:
+        overrides["ot_cond_flow"] = True
     for name in ("learning_iter", "num_chain", "step_size", "learning_rate",
                  "ode_steps", "alpha", "chunk_size"):
         val = getattr(args, name)
@@ -149,13 +180,13 @@ def main(argv=None):
             overrides[name] = val
     overrides.update(_parse_set(args.set))
     cfg = preset(args.example, **overrides)
-    target = EXAMPLES[args.example](device)
+    target = EXAMPLES[args.example](device=device)
 
     seeds = [args.seed] if args.seed is not None else [i**10 for i in range(10)]
     results = []
     for seed in seeds:
         cfg.seed = seed
-        results.append(run_one(target, cfg, device))
+        results.append(run_one(target, cfg, device, check=args.check))
 
     cols = ("logpdf", "stein_u", "stein_v", "mmd", "train_time")
     rows = np.asarray([[m[c] for c in cols] for m in results])

@@ -1,21 +1,21 @@
 """The MFM training driver (counterpart of ``mfm_tpu.drivers.mfm``).
 
 Each iteration: one interleaved data move for the whole ensemble (MALA, or
-pullback random-walk MH through the CNF every ``mcmc_per_flow_steps + 1``
-iterations), one flow-matching gradient step with the hand-written AdamW,
-and ESS-bisection tempering while beta < 1. After training,
+a flow kernel through the CNF every ``mcmc_per_flow_steps + 1`` iterations:
+pullback random-walk MH, independence MH or CIS by
+``num_importance_samples``), one flow-matching gradient step with the
+hand-written AdamW, and ESS-bisection tempering while beta < 1. After training,
 ``sample_flow_parts`` pushes reference draws through the transport and
 importance-resamples them.
 
 The reference scans the loop on device; here it is a Python loop over
 chunks, with the iteration's kind decided on the host from the counter.
 Randomness is injected: ``step_fn`` takes the iteration's noise
-(``MalaNoise`` or ``RwmNoise``, and ``FMNoise``) and ``draw_step_noise``
-draws it from a ``torch.Generator``. Parameters are a ``{name: tensor}``
+(``MalaNoise`` or the flow kernel's own tuple, and ``FMNoise``) and
+``draw_step_noise`` draws it from a ``torch.Generator``. Parameters are a ``{name: tensor}``
 dict carried in the state, as the reference carries its flax tree.
 
-Not ported yet: hmc/nuts and in-loop adaptation, CIS and independence-MH
-flow kernels, the 'prior' reference, meshes and checkpoints.
+Not ported yet: hmc/nuts and in-loop adaptation, meshes and checkpoints.
 """
 
 import time
@@ -34,6 +34,7 @@ from mfm_tpu_torch.flows import (
     draw_probe,
     field_params,
     flow_matching_loss,
+    flow_noise_sampler,
     fm_sample,
     kernel_tangent_field,
     make_lr_schedule,
@@ -41,13 +42,15 @@ from mfm_tpu_torch.flows import (
     module_tangent_field,
     select_flow_kernel,
 )
+from mfm_tpu_torch.flows.cnf import EXACT_DISC_MAX_D
+from mfm_tpu_torch.flows.flow_mh import CisNoise, IndepNoise, RwmNoise  # noqa: F401
 from mfm_tpu_torch.flows.train import TrainState
 from mfm_tpu_torch.flows.vector_field import PRECISIONS
 from mfm_tpu_torch.kernels import ChainState, mala
 from mfm_tpu_torch.ops.field import ACTIVATIONS, check_fits, field_layout
 from mfm_tpu_torch.smc.solvers import bisection
 from mfm_tpu_torch.targets import make_ref_dist
-from mfm_tpu_torch.targets.base import Target
+from mfm_tpu_torch.targets.base import PriorReference, Target
 
 
 class MFMCarry(NamedTuple):
@@ -72,17 +75,11 @@ class MalaNoise(NamedTuple):
     u_accept: torch.Tensor  # (B,) uniform
 
 
-class RwmNoise(NamedTuple):
-    eps: torch.Tensor  # (B, d) standard normal
-    u_accept: torch.Tensor  # (B,) uniform
-    probe_inv: Optional[torch.Tensor] = None  # Hutchinson probes, else None
-    probe_fwd: Optional[torch.Tensor] = None
-
-
 class FMNoise(NamedTuple):
     t: torch.Tensor  # (B,) uniform
     x0: Optional[torch.Tensor]  # (B, d) reference draws (conditional path)
     eps: torch.Tensor  # (B, d) standard normal
+    ot_u: Optional[torch.Tensor] = None  # (B,) uniform: the OT pair choice
 
 
 class MFMPieces(NamedTuple):
@@ -145,7 +142,6 @@ def _check_ported(cfg) -> None:
     unported = {
         "mcmc_kernel": cfg.mcmc_kernel != "mala",
         "adapt_step_size/adapt_mass": astep or amass,
-        "ot_cond_flow": cfg.ot_cond_flow,
         "mesh_shape": cfg.mesh_shape is not None,
         "checkpoint_dir": cfg.checkpoint_dir is not None,
     }
@@ -161,6 +157,11 @@ def build_mfm(
     draws the Fourier frequencies and the initial weights."""
     _check_ported(cfg)
     set_field_precision(cfg.field_precision)
+    if cfg.divergence == "exact_disc" and cfg.dim > EXACT_DISC_MAX_D:
+        raise ValueError(
+            f"divergence_mode='exact_disc' is for d <= {EXACT_DISC_MAX_D} (a (B, d, d) "
+            f"Jacobian), got dim={cfg.dim}"
+        )
     use_real_samples = cfg.mcmc_per_flow_steps < 0
     B, d = cfg.num_chain, cfg.dim
 
@@ -193,7 +194,10 @@ def build_mfm(
     transport = make_transport(
         bind, divergence=cfg.divergence, n_steps=cfg.ode_steps, method=cfg.ode_method
     )
-    ref_dist = make_ref_dist(cfg.ref_dist, d, device)
+    if cfg.ref_dist == "prior":  # the target's own prior; raises if it has no sampler
+        ref_dist = PriorReference(target)
+    else:
+        ref_dist = make_ref_dist(cfg.ref_dist, d, device)
     lr_fn = make_lr_schedule(cfg.learning_iter, cfg.warmup_steps, cfg.learning_rate)
     tx = adamw_finite(
         lr_fn, weight_decay=cfg.weight_decay, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
@@ -201,10 +205,15 @@ def build_mfm(
     )
     vs_fn = target.tempered_value_and_score
     flow_kernel = select_flow_kernel(cfg.num_importance_samples)
+    draw_flow_noise = flow_noise_sampler(cfg.num_importance_samples)
+    conditional = cfg.cond_flow or cfg.ot_cond_flow
 
     def loss_fn(params, samples, noise: FMNoise):
-        if cfg.cond_flow:
-            batch = cond_fm_sample(samples, noise.t, noise.x0, noise.eps, cfg.sigma)
+        if conditional:
+            batch = cond_fm_sample(
+                samples, noise.t, noise.x0, noise.eps, cfg.sigma,
+                noise.ot_u if cfg.ot_cond_flow else None,
+            )
         else:
             batch = fm_sample(samples, noise.t, noise.eps, cfg.sigma)
         return flow_matching_loss(lambda x, t: functional_call(net, params, (x, t)), batch)
@@ -227,12 +236,7 @@ def build_mfm(
         if use_real_samples:
             move = target.sample(gen, (B,))
         elif _interleave_is_flow(count, cfg.mcmc_per_flow_steps):
-            move = RwmNoise(
-                torch.randn((B, d), generator=gen, device=dev),
-                torch.rand(B, generator=gen, device=dev),
-                draw_probe(transport, gen, B, d),
-                draw_probe(transport, gen, B, d),
-            )
+            move = draw_flow_noise(gen, transport, ref_dist.sample, B, d)
         else:
             move = MalaNoise(
                 torch.randn((B, d), generator=gen, device=dev),
@@ -240,8 +244,9 @@ def build_mfm(
             )
         fm = FMNoise(
             torch.rand(B, generator=gen, device=dev),
-            ref_dist.sample(gen, (B,)) if cfg.cond_flow else None,
+            ref_dist.sample(gen, (B,)) if conditional else None,
             torch.randn((B, d), generator=gen, device=dev),
+            torch.rand(B, generator=gen, device=dev) if cfg.ot_cond_flow else None,
         )
         return move, fm
 
@@ -322,6 +327,8 @@ def run_mfm(target: Target, cfg, device="cuda", logger=None) -> MFMRun:
             torch.rand(n_probe, generator=probe_gen, device=probe_gen.device),
             pieces.ref_dist.sample(probe_gen, (n_probe,)),
             torch.randn(probe.shape, generator=probe_gen, device=probe_gen.device),
+            torch.rand(n_probe, generator=probe_gen, device=probe_gen.device)
+            if cfg.ot_cond_flow else None,
         )
         eval_loss = lambda params: pieces.loss_fn(params, probe, probe_noise)
 

@@ -27,7 +27,13 @@ Divergence estimators: ``exact`` pushes the d basis vectors (in chunks of
 ``EXACT_CHUNK`` tangents, built contiguous once per transport) and sums
 the diagonal; ``hutchinson`` takes
 probes (B, d) or (K, B, d) supplied by the caller and averages
-p . (J p) over them. The transport runs without autograd.
+p . (J p) over them. Both estimate the continuous flow's logdet.
+``exact_disc`` is the exact log|det| of the discrete integrator map that
+moves the particles: the d basis tangents ride the RK4/Heun/Euler map
+itself (each stage's tangent is J . E at that stage's point, combined with
+the step's own weights), and a batched ``slogdet`` of the assembled
+(B, d, d) Jacobian closes it; d <= ``EXACT_DISC_MAX_D``. The transport runs
+without autograd.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -35,7 +41,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import functional_call, jvp, vmap
 
-from mfm_tpu_torch.flows.ode import odeint_grid
+from mfm_tpu_torch.flows.ode import odeint_grid, odeint_grid_save
 from mfm_tpu_torch.ops.field import (
     field_apply,
     field_layout,
@@ -43,6 +49,9 @@ from mfm_tpu_torch.ops.field import (
 )
 
 EXACT_CHUNK = 64  # basis tangents per field call in the exact divergence
+# exact_disc carries d tangents of d entries a sample and ends in a (B, d, d)
+# slogdet: small d only, as the configuration says
+EXACT_DISC_MAX_D = 128
 
 
 class _MLP(torch.nn.Module):
@@ -145,12 +154,65 @@ _DIVERGENCES = {"exact": exact_divergence, "hutchinson": hutchinson_divergence}
 class Transport(NamedTuple):
     """forward(params, u, probe=None) -> (x, logdet);
     inverse(params, x, probe=None) -> (u, logdet);
-    probe_shape(B, d) -> the shape of the probe draw, or None."""
+    probe_shape(B, d) -> the shape of the probe draw, or None;
+    forward_traj(params, u, save_ts, probe=None) -> (S, B, d) positions at
+    the times ``save_ts``."""
 
     forward: Callable
     inverse: Callable
     probe_shape: Callable
     probe_dist: str
+    forward_traj: Callable
+
+
+def _times(x, t: float):
+    return torch.full(x.shape[:1], t, dtype=x.dtype, device=x.device)
+
+
+def _make_exact_disc_transport(bind: Callable, n_steps: int, method: str) -> Transport:
+    """Transport whose logdet is the exact log-Jacobian of the discrete map,
+    with the contract and sign convention of the other paths: ``forward``
+    returns log|det dx/du| of the forward map, ``inverse`` the same
+    quantity, that is -log|det du/dx| of the reverse map. Probes are taken
+    and ignored."""
+
+    def _run(params, y, sign):
+        B, d = y.shape
+        if d > EXACT_DISC_MAX_D:
+            raise ValueError(
+                f"divergence 'exact_disc' carries d tangents and a (B, d, d) Jacobian: "
+                f"d <= {EXACT_DISC_MAX_D}, got {d}; use 'exact' or 'hutchinson'"
+            )
+        f = bind(params)
+        basis = torch.eye(d, dtype=y.dtype, device=y.device)[:, None, :].expand(d, B, d)
+
+        def dyn(state, s):  # the map's own tangents: d(stage) = J(stage point) . E
+            x, tangents = state
+            v, jv = f(x, _times(x, s if sign > 0 else 1.0 - s), tangents.contiguous())
+            return (v, jv) if sign > 0 else (-v, -jv)
+
+        with torch.no_grad():
+            out, tangents = odeint_grid(dyn, (y, basis.contiguous()), 0.0, 1.0, n_steps, method)
+            # tangents[i] = J e_i, one (B, d) column set: jac[b, :, i]
+            logdet = torch.linalg.slogdet(tangents.permute(1, 2, 0))[1]
+        return out, logdet
+
+    def forward(params, u, probe=None):
+        return _run(params, u, +1)
+
+    def inverse(params, x, probe=None):
+        u, logdet_rev = _run(params, x, -1)
+        return u, -logdet_rev
+
+    def forward_traj(params, u, save_ts, probe=None):
+        f = bind(params)
+        no_tangent = torch.zeros((1,) + u.shape, dtype=u.dtype, device=u.device)
+        with torch.no_grad():
+            return odeint_grid_save(
+                lambda x, t: f(x, _times(x, t), no_tangent)[0], u, save_ts, n_steps, method
+            )
+
+    return Transport(forward, inverse, lambda B, d: None, "gaussian", forward_traj)  # no probes
 
 
 def make_transport(
@@ -162,9 +224,11 @@ def make_transport(
     probe_dist: str = "gaussian",
 ) -> Transport:
     """Whole-ensemble transport for a tangent field ``bind(params)``."""
+    if divergence == "exact_disc":
+        return _make_exact_disc_transport(bind, n_steps, method)
     if divergence not in _DIVERGENCES:
-        raise NotImplementedError(
-            f"divergence {divergence!r} is not ported yet (ported: {sorted(_DIVERGENCES)})"
+        raise ValueError(
+            f"unknown divergence {divergence!r} (known: {sorted(_DIVERGENCES)}, 'exact_disc')"
         )
     div_fn = _DIVERGENCES[divergence]
     needs_probe = divergence == "hutchinson"
@@ -178,31 +242,37 @@ def make_transport(
         if needs_probe and probe is None:
             raise ValueError("hutchinson divergence requires a probe")
 
-    def _run(params, y, probe, sign):
+    def _problem(params, y, probe, sign):
         f = bind(params)
         if not needs_probe:  # the exact basis, the same at every stage
             probe = exact_basis(y)
 
         def dyn(state, s):
             x, _ = state
-            t = s if sign > 0 else 1.0 - s
-            tb = torch.full(x.shape[:1], t, dtype=x.dtype, device=x.device)
-            v, div = div_fn(f, x, tb, probe)
+            v, div = div_fn(f, x, _times(x, s if sign > 0 else 1.0 - s), probe)
             return (v if sign > 0 else -v), div
 
-        y0 = (y, torch.zeros(y.shape[:1], dtype=y.dtype, device=y.device))
+        return dyn, (y, torch.zeros(y.shape[:1], dtype=y.dtype, device=y.device))
+
+    def _run(params, y, probe, sign):
+        _check_probe(probe)
+        dyn, y0 = _problem(params, y, probe, sign)
         with torch.no_grad():
             return odeint_grid(dyn, y0, 0.0, 1.0, n_steps, method)
 
     def forward(params, u, probe: Optional[torch.Tensor] = None):
-        _check_probe(probe)
         return _run(params, u, probe, +1)
 
     def inverse(params, x, probe: Optional[torch.Tensor] = None):
-        _check_probe(probe)
         return _run(params, x, probe, -1)
 
-    return Transport(forward, inverse, probe_shape, probe_dist)
+    def forward_traj(params, u, save_ts, probe: Optional[torch.Tensor] = None):
+        _check_probe(probe)
+        dyn, y0 = _problem(params, u, probe, +1)
+        with torch.no_grad():
+            return odeint_grid_save(dyn, y0, save_ts, n_steps, method)[0]
+
+    return Transport(forward, inverse, probe_shape, probe_dist, forward_traj)
 
 
 def draw_probe(transport: Transport, generator: torch.Generator, B: int, d: int):

@@ -8,7 +8,9 @@ The kernels work through a schedule of 64x64 tiles of pairs built here
 tiles with j >= i and counts the others twice. One launch gives a sum (or
 the three sums of an MMD) as fp64, the same bits on every run; the Stein
 sum at d >= ``GRAM_MIN_D`` takes the tensor cores, with a first launch
-that centres X. The U/V and MMD^2 assembly stays here, as in
+that centres X, unless the data would cost the Gram form its accuracy
+(``gram_error_estimate``: far-apart modes, repeated points), which sends
+it to the differences form. The U/V and MMD^2 assembly stays here, as in
 ``pairwise_pallas.py:168-185``.
 """
 
@@ -29,6 +31,20 @@ GRAM_COLS = 32  # the Gram route pads d to a multiple of it: kGK there
 # the other's at d = 32 (tools/pairwise_variants.py); its error against
 # float64 grows as d falls (1e-6 at d = 32, 1e-5 at d = 8).
 GRAM_MIN_D = 32
+# The Gram form gets r = |x_i|^2 + |x_j|^2 - 2 x_i.x_j from fp32 numbers of the
+# size of the largest centred |x|^2, so r carries an absolute error of about
+# EPS32 * max |x|^2; a term depends on r through 1 + r, so its relative error
+# is that over 1 + r, largest for the closest pairs, which also weigh most.
+# ``gram_error_estimate`` is this ratio with the smallest r among
+# ``ROUTE_PROBES`` rows against all rows; it came out equal to the measured
+# error of the sum against float64 where the closest pairs dominate (4e-6
+# estimated against 4.4e-6 measured for two modes at +-8 in 64 coordinates,
+# 4e-8 against 4.6e-8 for a unit Gaussian at (12800, 1600)). The Gram route is
+# taken only while the estimate is under a quarter of the 1e-5 the sums are
+# held to.
+EPS32 = 2.0**-23
+ROUTE_PROBES = 64
+GRAM_ERROR_BUDGET = 2.5e-6
 # Blocks of a launch for each SM: many short runs of tiles, so that the
 # card's own block scheduler evens out the strips' unequal lengths.
 BLOCKS_PER_SM = 16
@@ -133,12 +149,44 @@ def _tiles(n_rows: int) -> int:
     return math.ceil(n_rows / TILE)
 
 
+def gram_error_estimate(Xc: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
+    """The Gram route's relative error on the closest pairs of the centred
+    rows ``Xc`` (T, d) with squared norms ``sq`` (T,), as a 0-d tensor:
+    ``EPS32 * max(sq) / (1 + min r)``, the minimum over ``ROUTE_PROBES``
+    evenly spaced rows against every other row. r comes in the Gram form
+    itself: its own error is the numerator's, so a repeated point gives
+    r ~ 0 and the estimate ``EPS32 * max(sq)``. One (probes, d) x (d, T)
+    product."""
+    T = Xc.shape[0]
+    idx = torch.arange(0, T, max(1, T // ROUTE_PROBES), device=Xc.device)[:ROUTE_PROBES]
+    r = sq[idx, None] + sq[None, :] - 2.0 * (Xc[idx] @ Xc.T)
+    r[torch.arange(idx.shape[0], device=Xc.device), idx] = torch.inf  # a row with itself
+    return EPS32 * torch.max(sq) / (1.0 + torch.clamp(torch.min(r), min=0.0))
+
+
+def pick_stein_route(X: torch.Tensor) -> str:
+    """The route ``stein_pairwise_sum`` takes for X (T, d) when none is
+    asked for: by d, and from ``GRAM_MIN_D`` on by ``gram_error_estimate``
+    of the centred data (a few small launches and one scalar read back)."""
+    if X.shape[1] < GRAM_MIN_D:
+        return "diff"
+    if X.shape[0] < 2:
+        return "gram"
+    Xc = X - X.mean(0, dtype=torch.float32)
+    est = gram_error_estimate(Xc, torch.sum(Xc * Xc, -1))
+    return "gram" if float(est) <= GRAM_ERROR_BUDGET else "diff"
+
+
 def stein_pairwise_sum(X: torch.Tensor, S: torch.Tensor, beta: float = -0.5,
                        route: Optional[str] = None):
     """Total IMQ-Stein pairwise sum (diagonal included) as an fp64 scalar.
 
-    ``route`` is for measurements: ``'diff'`` or ``'gram'`` instead of the
-    route that d picks (``GRAM_MIN_D``)."""
+    With ``route`` None, ``pick_stein_route`` chooses: d < ``GRAM_MIN_D``
+    takes the differences form and d >= ``GRAM_MIN_D`` the Gram form on the
+    tensor cores, unless ``gram_error_estimate`` of the centred data passes
+    ``GRAM_ERROR_BUDGET`` (one read-back of a scalar: the eval runs once a
+    run); ``route='diff'`` or ``'gram'`` overrides the choice. The routes
+    taken are counted in ``stein_pairwise_sum.route_counts``."""
     if X.device.type == "cpu":
         return stein_pairwise_sum_plain(X, S, beta)
     if X.device.type != "cuda":
@@ -147,10 +195,10 @@ def stein_pairwise_sum(X: torch.Tensor, S: torch.Tensor, beta: float = -0.5,
     if X.shape != S.shape:
         raise ValueError("stein_pairwise_sum: X and S differ in shape")
     T, d = X.shape
-    if route is None:
-        route = "gram" if d >= GRAM_MIN_D else "diff"
-    if route not in ("diff", "gram"):
+    if route not in (None, "diff", "gram"):
         raise ValueError(f"stein_pairwise_sum: unknown route {route!r}")
+    if route is None:
+        route = pick_stein_route(X)
     lib = build.load_library()
     n = _tiles(T)
     items, _, partials, counter, out, stream = _launch_state(((0, n, n, True),), X.device)
@@ -174,6 +222,7 @@ def stein_pairwise_sum(X: torch.Tensor, S: torch.Tensor, beta: float = -0.5,
         )
     build.check(err, "stein_pairwise_sum")
     stein_pairwise_sum.launches += 1
+    stein_pairwise_sum.route_counts[route] += 1
     return out[0]
 
 
@@ -223,6 +272,7 @@ def rbf_mmd_sums(X: torch.Tensor, Y: torch.Tensor, sigma2: float = 1.0):
 
 
 stein_pairwise_sum.launches = 0
+stein_pairwise_sum.route_counts = {"diff": 0, "gram": 0}
 rbf_kernel_sum.launches = 0
 
 

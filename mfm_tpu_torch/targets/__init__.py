@@ -1,6 +1,8 @@
 """Target densities and the flow reference-distribution registry."""
 
-from mfm_tpu_torch.targets.base import Target
+from mfm_tpu_torch.targets.base import GeometricPath, PriorReference, Target
+from mfm_tpu_torch.targets.cox import LogGaussianCoxPines
+from mfm_tpu_torch.targets.funnel import Funnel, ManyWell
 from mfm_tpu_torch.targets.gaussian import (
     FlatDistribution,
     GaussianMixture,
@@ -12,7 +14,8 @@ from mfm_tpu_torch.targets.gaussian import (
 from mfm_tpu_torch.targets.phi_four import PhiFour, PhiFourBase
 
 # name -> (dim, device) -> reference; 'bimodal' is 2-D whatever dim says,
-# as in mfm_tpu
+# as in mfm_tpu. 'prior' is not in the table: it wraps the run's target
+# (``PriorReference``), which ``drivers.mfm.build_mfm`` does.
 REF_DISTS = {
     "stdgauss": lambda dim, device: IndepGaussian(dim),
     "widegauss": lambda dim, device: IndepGaussian(dim, var=5.0),
@@ -24,7 +27,9 @@ REF_DISTS = {
 
 def make_ref_dist(name: str, dim: int, device=None) -> Target:
     if name == "prior":
-        raise NotImplementedError("reference distribution 'prior' is not ported yet")
+        raise ValueError(
+            "reference distribution 'prior' is made from the target: PriorReference(target)"
+        )
     try:
         return REF_DISTS[name](dim, device)
     except KeyError:
@@ -33,6 +38,11 @@ def make_ref_dist(name: str, dim: int, device=None) -> Target:
 
 __all__ = [
     "Target",
+    "GeometricPath",
+    "PriorReference",
+    "LogGaussianCoxPines",
+    "Funnel",
+    "ManyWell",
     "IndepGaussian",
     "FlatDistribution",
     "GaussianMixture",

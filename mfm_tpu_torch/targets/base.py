@@ -12,7 +12,13 @@ Samplers take an explicit ``torch.Generator`` and draw on its device.
 score gate ``gate * clip(score(x))`` and its x-tangents; the generic body
 (``generic_score_gate``) differentiates ``score`` with ``vmap(jvp)``, and a
 target with a fused kernel for it overrides the method (``PhiFour``).
+
+``GeometricPath`` re-splits a target's tempering path around N(0, I);
+``PriorReference`` makes a target's own prior the flow's reference
+distribution (``ref_dist='prior'``).
 """
+
+import math
 
 from typing import Callable, Optional
 
@@ -95,3 +101,87 @@ class Target:
         return torch.randn(
             (n_chain, self.dim), generator=generator, device=generator.device
         )
+
+    def prior_sample(self, generator: torch.Generator, shape=()) -> torch.Tensor:
+        """Exact sampler of the (normalised) prior, when the target has one;
+        it makes the 'prior' flow reference possible."""
+        raise NotImplementedError(f"{type(self).__name__} has no prior sampler")
+
+
+class GeometricPath(Target):
+    """A target with its tempering path re-split around q0 = N(0, I):
+
+        log_prior'(x) = log N(x; 0, I)
+        log_lik'(x)   = log_prob(x) - log N(x; 0, I)
+
+    so that ``beta * log_lik' + log_prior'`` is the geometric bridge
+    N(0, I)^(1 - beta) * p(x)^beta, whose beta = 0 end is the distribution
+    the particles start from. ``log_prob`` and every beta = 1 quantity are
+    the wrapped target's."""
+
+    def __init__(self, target: Target):
+        self.dim = target.dim
+        self._target = target
+
+    def _log_q0(self, x):
+        return -0.5 * torch.sum(x * x, dim=-1) - 0.5 * self.dim * math.log(2.0 * math.pi)
+
+    def log_lik(self, x):
+        return self._target.log_prob(x) - self._log_q0(x)
+
+    def log_prior(self, x):
+        return self._log_q0(x)
+
+    def log_prob(self, x):
+        return self._target.log_prob(x)
+
+    def score(self, x):
+        return self._target.score(x)
+
+    def value_and_score(self, x):
+        return self._target.value_and_score(x)
+
+    def score_gate(self, x, gate, field, ex=None, dfield=None, clip=None):
+        return self._target.score_gate(x, gate, field, ex, dfield, clip)
+
+    def tempered_value_and_score(self, x, beta):
+        """(1 - beta) * q0 + beta * p, reusing p's own value and score."""
+        value, grad = self._target.value_and_score(x)
+        return beta * value + (1.0 - beta) * self._log_q0(x), beta * grad - (1.0 - beta) * x
+
+    def sample(self, generator, shape=()):
+        return self._target.sample(generator, shape)
+
+    @property
+    def can_sample(self) -> bool:
+        return self._target.can_sample
+
+    def init_positions(self, generator, n_chain):
+        # the path's beta = 0 end, whatever the wrapped target starts from
+        return torch.randn((n_chain, self.dim), generator=generator, device=generator.device)
+
+
+class PriorReference(Target):
+    """The flow reference made of a target's own prior: ``log_prob`` is the
+    target's normalised ``log_prior``, ``sample`` its ``prior_sample``. With
+    an informed prior the flow has only the likelihood update to learn."""
+
+    def __init__(self, target: Target):
+        if type(target).prior_sample is Target.prior_sample:
+            raise NotImplementedError(
+                f"ref_dist='prior': {type(target).__name__} has no prior sampler"
+            )
+        self.dim = target.dim
+        self._target = target
+
+    @property
+    def gaussian_mean(self):
+        """Mean of the (Gaussian) prior, for elliptical-slice proposals; a
+        target whose Gaussian prior is not centred has ``prior_gaussian_mean``."""
+        return getattr(self._target, "prior_gaussian_mean", 0.0)
+
+    def log_lik(self, x):
+        return self._target.log_prior(x)
+
+    def sample(self, generator, shape=()):
+        return self._target.prior_sample(generator, shape)

@@ -92,6 +92,7 @@ class PhiFour(Target):
         beta: float = 20.0,
         bc: Tuple[str, float] = ("dirichlet", 0.0),
         tilt: Optional[dict] = None,
+        device=None,  # taken as every target takes it; PhiFour holds no tensor
     ):
         if bc[0] not in ("dirichlet", "pbc"):
             raise ValueError("bc must be dirichlet or pbc")

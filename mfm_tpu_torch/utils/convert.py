@@ -1,6 +1,7 @@
-"""Carry parameters from the reference's flax trees into the port.
+"""Carry parameters and target state from the reference into the port.
 
-Conversion is one way, flax -> torch. The tree names are those of
+Conversion is one way, reference -> port; everything crosses as numpy (this
+module imports nothing of the reference). Parameters: flax -> torch. The tree names are those of
 ``VectorFieldNet`` (and of ``field_pallas.split_params``): ``t_trunk`` /
 ``x_trunk`` / ``xt_trunk`` ``Dense_i``, ``gate_head``, ``field_head``. A
 flax ``Dense`` kernel is (in, out); ``nn.Linear.weight`` is (out, in).
@@ -32,3 +33,31 @@ def params_from_flax(tree, fourier_freqs=None) -> dict:
     if fourier_freqs is not None:
         out["fourier_freqs"] = torch.tensor(np.asarray(fourier_freqs))
     return out
+
+
+COX_ARRAYS = ("_counts", "_chol", "_prec", "_mu_zero")
+COX_SCALARS = ("_white_log_norm", "_latent_log_norm", "_bin_area", "prior_gaussian_mean")
+
+
+def cox_state_from_reference(target, arrays: dict, load: bool = False) -> dict:
+    """Hold a ``LogGaussianCoxPines`` of the port to the reference target's
+    state, given as numpy: ``arrays`` maps ``COX_ARRAYS`` to arrays and
+    ``COX_SCALARS`` to numbers. Returns the largest absolute difference per
+    name (0.0 everywhere when both were built from the same data: the host
+    code is the same float64 numpy). With ``load`` the port's arrays and
+    scalars are then replaced by the given ones, on the device they lie on,
+    so that both packages compute from the same bits."""
+    diffs = {}
+    for name in COX_ARRAYS:
+        mine = getattr(target, name)
+        theirs = np.asarray(arrays[name], np.float32)
+        if tuple(mine.shape) != theirs.shape:
+            raise ValueError(f"{name}: shape {tuple(mine.shape)} against {theirs.shape}")
+        diffs[name] = float(np.max(np.abs(mine.detach().cpu().numpy() - theirs)))
+        if load:
+            setattr(target, name, torch.tensor(theirs, device=mine.device))
+    for name in COX_SCALARS:
+        diffs[name] = abs(float(getattr(target, name)) - float(arrays[name]))
+        if load:
+            setattr(target, name, float(arrays[name]))
+    return diffs

@@ -35,7 +35,13 @@ from mfm_tpu_torch.flows import (
     module_tangent_field,
 )
 from mfm_tpu_torch.ops import field, pairwise, phi_four
-from mfm_tpu_torch.targets import PhiFour, four_mode_mixture
+from mfm_tpu_torch.targets import (
+    Funnel,
+    LogGaussianCoxPines,
+    ManyWell,
+    PhiFour,
+    four_mode_mixture,
+)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -179,16 +185,133 @@ def test_stein_routes_agree(cuda, route):
     assert abs(got - ref) <= 1e-5 * abs(ref)
 
 
+def _stein_with_route(X, S, **kw):
+    """(sum, the route the call took), from the wrapper's route counts."""
+    counts = pairwise.stein_pairwise_sum.route_counts
+    before = dict(counts)
+    out = pairwise.stein_pairwise_sum(X, S, **kw)
+    (route,) = [k for k in counts if counts[k] != before[k]]
+    return out, route
+
+
+def _far_modes(dev, T, d, offset, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    modes = offset * (2.0 * torch.randint(0, 2, (T, 1), generator=gen, device=dev) - 1.0)
+    X = torch.randn((T, d), generator=gen, device=dev) + modes
+    return X.contiguous(), (modes - X).contiguous()
+
+
 def test_stein_gram_route_on_two_far_modes(cuda):
-    """Modes at +-8 in every coordinate: the centring removes no offset, the
-    norms are 65 times a within-mode distance, and the Gram route still
-    holds 1e-5 of float64."""
-    gen = torch.Generator(device=cuda).manual_seed(12)
-    modes = 8.0 * (2.0 * torch.randint(0, 2, (700, 1), generator=gen, device=cuda) - 1.0)
-    X = torch.randn((700, 64), generator=gen, device=cuda) + modes
-    S = modes - X
+    """Modes at +-8 in every coordinate: the centring removes no offset and
+    the norms are 65 times a within-mode distance. The Gram route asked for
+    by name still holds 1e-5 of float64 here; the default route is the
+    differences form, which the data-driven bound sends such input to."""
+    X, S = _far_modes(cuda, 700, 64, 8.0, 12)
     ref = float(pairwise.stein_pairwise_sum_plain(X.double(), S.double()))
-    assert abs(float(pairwise.stein_pairwise_sum(X, S)) - ref) <= 1e-5 * abs(ref)
+    assert abs(float(pairwise.stein_pairwise_sum(X, S, route="gram")) - ref) <= 1e-5 * abs(ref)
+    got, route = _stein_with_route(X, S)
+    assert abs(float(got) - ref) <= 1e-5 * abs(ref) and route == "diff"
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("offset", [1.0, 16.0, 32.0])
+def test_stein_default_route_on_far_modes(cuda, d, offset):
+    """The route the bound picks stays within 1e-5 of float64, with equal
+    bits twice, and it is the decision of ``pick_stein_route``."""
+    X, S = _far_modes(cuda, 12800, d, offset, int(offset) + d)
+    ref = float(pairwise.stein_pairwise_sum_plain(X.double(), S.double()))
+    (got, route), again = _stein_with_route(X, S), pairwise.stein_pairwise_sum(X, S)
+    assert torch.equal(got, again)
+    assert abs(float(got) - ref) <= 1e-5 * abs(ref)
+    assert route == pairwise.pick_stein_route(X) == ("gram" if offset == 1.0 else "diff")
+    forced, forced_route = _stein_with_route(X, S, route="gram")  # route= still overrides
+    assert forced_route == "gram" and torch.equal(forced, got) == (route == "gram")
+
+
+def test_stein_on_many_well_draws(cuda):
+    """Exact many-well draws at the eval size (T=12800, d=32, 2^16 modes)."""
+    target = ManyWell(32)
+    X = target.sample(torch.Generator(device=cuda).manual_seed(0), (12800,)).contiguous()
+    S = target.score(X).contiguous()
+    ref = float(pairwise.stein_pairwise_sum_plain(X.double(), S.double()))
+    got, again = pairwise.stein_pairwise_sum(X, S), pairwise.stein_pairwise_sum(X, S)
+    assert torch.equal(got, again) and abs(float(got) - ref) <= 1e-5 * abs(ref)
+    for route in ("diff", "gram"):
+        forced = float(pairwise.stein_pairwise_sum(X, S, route=route))
+        assert abs(forced - ref) <= 1e-5 * abs(ref), route
+
+
+def test_stein_at_the_pines_eval_shape(cuda):
+    """(128, 1600): two tiles of rows, 50 chunks of columns; distinct points
+    take the Gram route, an IS-resampled set with repeats the differences."""
+    target = LogGaussianCoxPines(1600, device=cuda)
+    X = target.prior_sample(torch.Generator(device=cuda).manual_seed(1), (128,)).contiguous()
+    for points, route in ((X, "gram"), (X[torch.arange(128, device=cuda) // 32].contiguous(),
+                                       "diff")):
+        S = target.score(points).contiguous()
+        ref = float(pairwise.stein_pairwise_sum_plain(points.double(), S.double()))
+        (got, took), again = _stein_with_route(points, S), pairwise.stein_pairwise_sum(points, S)
+        assert took == route
+        assert torch.equal(got, again) and abs(float(got) - ref) <= 1e-5 * abs(ref), route
+
+
+@pytest.mark.parametrize("target", [Funnel(10), ManyWell(32)], ids=["funnel", "many-well"])
+def test_rbf_general_kernel_on_exact_draws(cuda, target):
+    """K2b at d = 10 and 32 (``rbf_general_kernel``): the MMD of a funnel or
+    many-well run, three sums in one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    X, Y = (target.sample(gen, (3000,)).contiguous() for _ in range(2))
+    got, again = pairwise.rbf_mmd_sums(X, Y), pairwise.rbf_mmd_sums(X, Y)
+    ref = pairwise.rbf_mmd_sums_plain(X.double(), Y.double())
+    assert torch.equal(got, again)
+    assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("whitened", [False, True])
+def test_cox_value_and_score_on_the_card(cuda, whitened):
+    """The Cox target's value, score and score tangent on the card against
+    the CPU: exact fp32 products on both (TF32 off around each)."""
+    from torch.func import jvp
+
+    on_cpu = LogGaussianCoxPines(1600, whitened=whitened)
+    on_card = LogGaussianCoxPines(1600, whitened=whitened, device=cuda)
+    x = on_cpu.prior_sample(torch.Generator().manual_seed(3), (16,))
+    x = 0.5 * x if whitened else x
+    e = torch.randn(x.shape, generator=torch.Generator().manual_seed(4))
+    torch.backends.cuda.matmul.allow_tf32 = True  # the target must not depend on it
+    try:
+        v, g = on_card.tempered_value_and_score(x.to(cuda), 0.7)
+        tangent = jvp(on_card.score, (x.to(cuda),), (e.to(cuda),))[1]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    v_ref, g_ref = on_cpu.tempered_value_and_score(x, 0.7)
+    assert _rel_err(v.cpu(), v_ref) <= 1e-5
+    assert _rel_err(g.cpu(), g_ref) <= 1e-4
+    assert _rel_err(tangent.cpu(), jvp(on_cpu.score, (x,), (e,))[1]) <= 1e-4
+
+
+def test_exact_disc_over_the_kernel_matches_the_module(cuda):
+    """The discrete map's exact logdet with K1 carrying the d tangents,
+    against torch.func.jvp of the nn.Module, with the phi-four score gate."""
+    target = PhiFour(8)
+    net, params = _net(cuda, 8, 32, 16, score_fn=target.score, gate_scale=1e-3, seed=5)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    u = 2.0 * torch.rand((256, 8), generator=gen, device=cuda) - 1.0
+    out = {}
+    before = field.field_apply.launches
+    for name, bind in (("kernel", kernel_tangent_field(net)),
+                       ("module", module_tangent_field(net))):
+        tr = make_transport(bind, divergence="exact_disc", n_steps=4)
+        x, ld_f = tr.forward(params, u)
+        u_back, ld_i = tr.inverse(params, x)
+        out[name] = (x, ld_f, u_back, ld_i)
+    assert field.field_apply.launches == before + 32  # 2 transports x 4 steps x 4 stages
+    for a, b in zip(out["kernel"], out["module"]):
+        assert torch.isfinite(a).all() and float((a - b).abs().max()) <= 1e-4
+    exact = make_transport(kernel_tangent_field(net), divergence="exact", n_steps=64)
+    assert float((exact.forward(params, u)[1] - make_transport(
+        kernel_tangent_field(net), divergence="exact_disc", n_steps=64
+    ).forward(params, u)[1]).abs().max()) <= 1e-3
 
 
 @pytest.mark.parametrize("Ta,Tb,d", [

@@ -12,6 +12,10 @@
   reciprocal (any b); the centred Gram form with three hi/lo-split TF32
   products (x.x, s.s, (x+s).(x+s)); the RBF term as exp2 of pre-scaled
   coordinates. fp32 inside a tile, fp64 across tiles, as the kernels.
+- The Stein sum's route by the data (``gram_error_estimate``,
+  ``pick_stein_route``): on two modes at +-1, +-8, +-16 and +-32 in every
+  coordinate (d = 32 and 64) the route it picks, emulated, stays within
+  1e-5 of float64, where the Gram route alone does not.
 - check_floor, report_row and aggregate_seeds against the reference's
   (rtol 1e-4 for the statistics, the row layout exact).
 """
@@ -190,6 +194,48 @@ def test_stein_kernel_arithmetic_matches_float64(T, d, route, beta):
     got = emulate_stein(X, S, -beta, route)
     assert got.dtype == torch.float64
     assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
+
+
+def _two_modes(T, d, offset, seed):
+    """Two unit Gaussians at +-offset in every coordinate, and their score."""
+    rng = np.random.default_rng(seed)
+    centre = np.where(rng.random((T, 1)) < 0.5, -1.0, 1.0) * offset
+    X = tt((centre + rng.standard_normal((T, d))).astype(np.float32))
+    return X, -(X - tt(centre.astype(np.float32)))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("offset", [1, 8, 16, 32])
+def test_stein_route_by_the_data_keeps_the_sum_within_1e5(d, offset):
+    X, S = _two_modes(320, d, float(offset), 7 * d + offset)
+    ref = float(K2.stein_pairwise_sum_plain(X.double(), S.double(), -0.5))
+    route = K2.pick_stein_route(X)
+    got = float(emulate_stein(X, S, 0.5, route))
+    assert abs(got - ref) <= 1e-5 * abs(ref), (route, got, ref)
+    # near modes keep the tensor cores, far ones leave them
+    assert route == ("gram" if offset == 1 else "diff")
+    Xc = X - X.mean(0)
+    est = float(K2.gram_error_estimate(Xc, torch.sum(Xc * Xc, -1)))
+    gram_err = abs(float(emulate_stein(X, S, 0.5, "gram")) - ref) / abs(ref)
+    assert gram_err <= est, "the estimate bounds the Gram route's error here"
+    if offset == 32:  # the case the bound exists for: the Gram route alone fails
+        assert gram_err > 1e-5
+
+
+def test_stein_route_edge_cases():
+    X, _ = _two_modes(200, 16, 32.0, 1)
+    assert K2.pick_stein_route(X) == "diff"  # below GRAM_MIN_D: never the Gram form
+    wide = tt(_draw(200, 1600, 2, 1.0))
+    assert K2.pick_stein_route(wide) == "gram"  # a unit Gaussian at pines' width
+    twice = torch.cat([wide[:100], wide[:100]])  # repeated points, as an IS-resampled set has
+    Xc = twice - twice.mean(0)
+    est = float(K2.gram_error_estimate(Xc, torch.sum(Xc * Xc, -1)))
+    assert est > K2.GRAM_ERROR_BUDGET and K2.pick_stein_route(twice) == "diff"
+    near = tt(_draw(70, 64, 3, 0.5))
+    assert K2.pick_stein_route(near) == "gram"
+    # on the CPU the wrapper is the plain version whatever the route
+    S = -near
+    assert float(K2.stein_pairwise_sum(near, S)) == float(K2.stein_pairwise_sum_plain(near, S))
 
 
 def emulate_rbf_sums(X, Y, sigma2, n_blocks=5):

@@ -11,8 +11,15 @@ key tree (mfm.py:347, mala.py:61-64, flow_mh.py:93-97, losses.py:97-102,
 mfm.py:572). Tolerances: positions, parameters and beta to 1e-4 after
 twelve fp32 steps; the metric row to 1e-3 relative.
 
-Also: the port's packages import no JAX, and the CLI refuses what is not
-ported yet.
+The same for pines at a small size (d=16, 8 chains, Hutchinson, the
+'prior' reference, the eval transport with two Rademacher probes), metric
+row to 1e-3 relative. The pines preset's ``field_precision='default'`` is
+fp32 on XLA:CPU (bf16 only on a TPU), so the port runs 'highest' against
+it; a second run of the port with its bf16 field checks that path end to
+end (tests/test_torch_precision.py holds the bf16 arithmetic itself).
+
+Also: the port's packages import no JAX, the CLI runs every example and
+flag that has a path and refuses what is not ported yet.
 """
 
 import subprocess
@@ -30,6 +37,8 @@ from mfm_tpu.config import MFMConfig as JConfig
 from mfm_tpu.drivers.eval import evaluate_samples as j_eval
 from mfm_tpu.drivers.mfm import build_mfm as j_build
 from mfm_tpu.drivers.mfm import sample_flow_parts as j_sample_flow_parts
+from mfm_tpu.flows import make_transport as j_make_transport
+from mfm_tpu.targets.cox import LogGaussianCoxPines as JCox
 from mfm_tpu_torch.config import MFMConfig
 from mfm_tpu_torch.drivers import evaluate_samples, sample_flow_parts
 from mfm_tpu_torch.drivers.mfm import (
@@ -40,6 +49,7 @@ from mfm_tpu_torch.drivers.mfm import (
     _interleave_is_flow,
     build_mfm,
 )
+from mfm_tpu_torch.flows import make_transport
 from mfm_tpu_torch.flows.train import AdamWFiniteState, TrainState
 from mfm_tpu_torch.kernels import ChainState
 from mfm_tpu_torch.utils.convert import params_from_flax
@@ -161,6 +171,127 @@ def test_slice_matches_reference(reference, path):
             np.testing.assert_allclose(row[k], v, rtol=1e-3, atol=1e-6, err_msg=k)
 
 
+PD, PB = 16, 8
+PINES_CFG = dict(
+    example="pines", dim=PD, num_chain=PB, hidden_x=(16, 16), hidden_t=(16, 16),
+    hidden_xt=(16, 16), fourier_dim=8, ode_steps=3, mcmc_per_flow_steps=3.0,
+    learning_iter=N_STEPS, chunk_size=N_STEPS, step_size=0.01, hutchinson=True,
+    ref_dist="prior", eval_hutchinson_probes=2, eval_probe_dist="rademacher",
+)
+
+
+@pytest.fixture(scope="module")
+def pines_reference():
+    target = JCox(PD)
+    cfg = JConfig(**PINES_CFG, field_precision="default")  # as shipped; fp32 on XLA:CPU
+    pieces = j_build(target, cfg, jax.random.PRNGKey(0))
+    carry0 = jax.jit(pieces.init_fn)(target.init_positions(jax.random.PRNGKey(1), PB))
+    step = jax.jit(pieces.step_fn)
+    keys = jax.random.split(jax.random.PRNGKey(2), N_STEPS)
+    carry, metrics = carry0, []
+    for i in range(N_STEPS):
+        carry, m = step(carry, (keys[i], jnp.asarray(i + 1)))
+        metrics.append({k: float(v) for k, v in m.items()})
+    eval_transport = j_make_transport(
+        pieces.apply_fn, divergence=cfg.divergence, n_steps=cfg.ode_steps,
+        num_probes=cfg.eval_hutchinson_probes, probe_dist=cfg.eval_probe_dist,
+    )
+    skey = jax.random.PRNGKey(3)
+    flow, exact, logw = j_sample_flow_parts(
+        eval_transport, carry.train.params, pieces.ref_dist, skey, N_SAMPLES, target
+    )
+    return dict(pieces=pieces, carry0=carry0, carry=carry, keys=keys, metrics=metrics,
+                skey=skey, flow=flow, exact=exact, logw=logw, row=j_eval(target, flow, exact))
+
+
+def _replayed_pines_noise(ref_dist, key, count):
+    """The draws the reference's step takes from ``key``: Hutchinson probes
+    from key_h1 (forward) and key_h2 (inverse), x0 from the prior."""
+    k_gen, k_loss = jax.random.split(key)
+    if _interleave_is_flow(count, PINES_CFG["mcmc_per_flow_steps"]):
+        kg, ka, kh1, kh2 = jax.random.split(k_gen, 4)
+        move = RwmNoise(
+            tt(jax.random.normal(kg, (PB, PD))), tt(jax.random.uniform(ka, (PB,))),
+            tt(jax.random.normal(kh2, (PB, PD))), tt(jax.random.normal(kh1, (PB, PD))),
+        )
+    else:
+        kn, ka = jax.random.split(k_gen)
+        move = MalaNoise(tt(jax.random.normal(kn, (PB, PD))), tt(jax.random.uniform(ka, (PB,))))
+    kt, kr, ke, _ = jax.random.split(k_loss, 4)
+    fm = FMNoise(
+        tt(jax.random.uniform(kt, (PB,))), tt(ref_dist.sample(kr, (PB,))),
+        tt(jax.random.normal(ke, (PB, PD))),
+    )
+    return move, fm
+
+
+def test_pines_slice_matches_reference(pines_reference):
+    ref = pines_reference
+    ptarget = pt.LogGaussianCoxPines(PD)
+    cfg = MFMConfig(**PINES_CFG, field_precision="highest")
+    pieces = build_mfm(ptarget, cfg, "cpu", torch.Generator().manual_seed(0))
+    assert isinstance(pieces.ref_dist, pt.PriorReference)
+    with torch.no_grad():
+        pieces.net.fourier_freqs.copy_(tt(ref["pieces"].fourier))
+    carry = _port_carry(ref["carry0"])
+    kinds = set()
+    for i in range(N_STEPS):
+        count = i + 1
+        kinds.add(_interleave_is_flow(count, PINES_CFG["mcmc_per_flow_steps"]))
+        noise = _replayed_pines_noise(ref["pieces"].ref_dist, ref["keys"][i], count)
+        carry, m = pieces.step_fn(carry, count, *noise)
+        for k, v in ref["metrics"][i].items():
+            np.testing.assert_allclose(float(m[k]), v, rtol=1e-3, atol=1e-5, err_msg=f"{count} {k}")
+    assert kinds == {True, False}
+
+    jc = ref["carry"]
+    np.testing.assert_allclose(npy(carry.chain.position), np.asarray(jc.chain.position),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(npy(carry.chain.logdensity), np.asarray(jc.chain.logdensity),
+                               rtol=1e-3)
+    np.testing.assert_allclose(float(carry.beta), float(jc.beta), rtol=1e-3)
+    for k, v in params_from_flax(_tree_np(jc.train.params)).items():
+        np.testing.assert_allclose(npy(carry.train.params[k]), npy(v), atol=1e-4, err_msg=k)
+
+    # the eval transport: two Rademacher probes a sample
+    transport = make_transport(
+        pieces.field_bind, divergence=cfg.divergence, n_steps=cfg.ode_steps,
+        num_probes=cfg.eval_hutchinson_probes, probe_dist=cfg.eval_probe_dist,
+    )
+    k_ref, k_hutch, k_choice = jax.random.split(ref["skey"], 3)
+    u = tt(ref["pieces"].ref_dist.sample(k_ref, (N_SAMPLES,)))
+    probe = tt(jax.random.rademacher(k_hutch, (2, N_SAMPLES, PD), jnp.int8).astype(jnp.float32))
+    gumbel = tt(jax.random.gumbel(k_choice, (N_SAMPLES, N_SAMPLES)))
+    flow, exact, logw = sample_flow_parts(
+        transport, carry.train.params, pieces.ref_dist, ptarget, u, probe, gumbel=gumbel
+    )
+    np.testing.assert_allclose(npy(flow), np.asarray(ref["flow"]), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(npy(exact), np.asarray(ref["exact"]), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(npy(logw), np.asarray(ref["logw"]), rtol=1e-3, atol=1e-3)
+    row = evaluate_samples(ptarget, flow, exact)
+    for k, v in ref["row"].items():
+        if k != "metrics_kernel":
+            np.testing.assert_allclose(row[k], v, rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+def test_pines_slice_runs_with_the_bf16_field(pines_reference):
+    """The preset's own precision in the port: bf16 operands in every Dense.
+    The same twelve steps stay finite and close to the fp32 ones (the heads
+    start at zero, so the field is small: bf16 moves the loss by < 1 %)."""
+    ref = pines_reference
+    cfg = MFMConfig(**PINES_CFG, field_precision="default")
+    pieces = build_mfm(pt.LogGaussianCoxPines(PD), cfg, "cpu", torch.Generator().manual_seed(0))
+    assert pieces.net.field_head.precision == "default"
+    with torch.no_grad():
+        pieces.net.fourier_freqs.copy_(tt(ref["pieces"].fourier))
+    carry = _port_carry(ref["carry0"])
+    for i in range(N_STEPS):
+        noise = _replayed_pines_noise(ref["pieces"].ref_dist, ref["keys"][i], i + 1)
+        carry, m = pieces.step_fn(carry, i + 1, *noise)
+        np.testing.assert_allclose(float(m["loss"]), ref["metrics"][i]["loss"], rtol=1e-2)
+    assert bool(torch.isfinite(carry.chain.position).all())
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, mfm_tpu_torch, mfm_tpu_torch.cli, mfm_tpu_torch.drivers; "
@@ -171,7 +302,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--example", "pines"], "not ported"),
+    (["--example", "pines", "--flow-smc", "4"], "not ported"),
     (["--example", "4-mode", "--do-smc"], "not ported"),
     (["--example", "4-mode", "--move-correct", "10"], "not ported"),
     (["--example", "4-mode", "--vmap-seeds"], "not ported"),
@@ -184,9 +315,13 @@ def test_cli_refuses_unported_paths(argv, match):
 
 
 def test_unported_config_raises():
+    # 'prior' needs a target with a prior sampler
     cfg = MFMConfig(**{**CFG, "ref_dist": "prior"})
     with pytest.raises(NotImplementedError, match="prior"):
         build_mfm(pt.PhiFour(D), cfg, "cpu", torch.Generator())
+    cfg = MFMConfig(**{**CFG, "dim": 200, "divergence_mode": "exact_disc"})
+    with pytest.raises(ValueError, match="exact_disc"):
+        build_mfm(pt.PhiFour(200), cfg, "cpu", torch.Generator())
     cfg = MFMConfig(**{**CFG, "mcmc_kernel": "nuts"})
     with pytest.raises(NotImplementedError, match="mcmc_kernel"):
         build_mfm(pt.PhiFour(D), cfg, "cpu", torch.Generator())
@@ -205,6 +340,49 @@ def test_fused_field_refuses_what_the_kernel_cannot_take(override, match):
     cfg.pallas_field = False
     pieces = build_mfm(pt.PhiFour(D), cfg, "cpu", torch.Generator())
     assert pieces.field_bind.__qualname__.startswith("module_tangent_field.")
+
+
+_TINY = [
+    "--device", "cpu", "--seed", "0", "--learning-iter", "8", "--num-chain", "8",
+    "--ode-steps", "2", "--chunk-size", "4", "--mcmc-per-flow-steps", "3",
+    "--set", "hidden_x=(8,)", "--set", "hidden_t=(8,)", "--set", "hidden_xt=(8,)",
+    "--set", "fourier_dim=4", "--set", "eval_iter=4",
+]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--example", "pines"],
+    ["--example", "funnel"],
+    ["--example", "many-well"],
+    ["--example", "4-mode", "--num-importance-samples", "4"],
+    ["--example", "4-mode", "--num-importance-samples", "-1"],
+    ["--example", "4-mode", "--ot-cond-flow"],
+    ["--example", "4-mode", "--no-cond-flow"],
+    ["--example", "many-well", "--check"],
+    ["--example", "4-mode", "--set", "divergence_mode=exact_disc"],
+    ["--example", "funnel", "--set", "divergence_mode=exact_disc", "--hutchs"],
+], ids=lambda a: " ".join(a[1:]))
+def test_cli_runs_new_examples_and_flags(argv):
+    """Each example and flag of this slice end to end at a tiny size: a
+    finite metric row (pines has no sampler: its MMD is reported as 0)."""
+    from mfm_tpu_torch import cli
+
+    (m,) = cli.main(argv + _TINY)
+    keys = ("logpdf", "stein_u", "stein_v", "mmd", "logpdf_star", "stein_u_star", "mmd_star")
+    assert all(np.isfinite(m[k]) for k in keys), m
+    assert ("stein_u_real" in m) == ("--check" in argv)
+    assert (m["mmd"] == 0.0) == (argv[1] == "pines")
+
+
+def test_cli_has_no_unported_example():
+    from mfm_tpu_torch import cli
+
+    assert sorted(cli.EXAMPLES) == sorted(
+        ["4-mode", "gaussian-mixture", "phi-four", "pines", "funnel", "many-well"])
+    assert not hasattr(cli, "NOT_PORTED_EXAMPLES")
+    for name, factory in cli.EXAMPLES.items():  # one call shape for every entry
+        if name != "pines":
+            assert factory(device="cpu").dim >= 2
 
 
 def test_cli_runs_on_cpu(capsys):

@@ -184,5 +184,7 @@ def test_hutchinson_needs_a_probe_and_unported_modes_raise():
     tr = make_transport(module_tangent_field(net_p), divergence="hutchinson", n_steps=2)
     with pytest.raises(ValueError, match="probe"):
         tr.forward(pparams, torch.zeros(2, D))
-    with pytest.raises(NotImplementedError, match="exact_disc"):
-        make_transport(module_tangent_field(net_p), divergence="exact_disc")
+    # every mode of the reference is there now; an unknown one raises
+    assert make_transport(module_tangent_field(net_p), divergence="exact_disc").forward_traj
+    with pytest.raises(ValueError, match="unknown divergence"):
+        make_transport(module_tangent_field(net_p), divergence="exact_cont")

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the port's phi-four slice goes, on one CUDA card.
+"""Where the time of one of the port's examples goes, on one CUDA card.
 
-    python3 tools/profile_slice.py              # the slice at full size
+    python3 tools/profile_slice.py              # the phi-four slice at full size
+    python3 tools/profile_slice.py --example pines    # pines as shipped
     python3 tools/profile_slice.py --device cpu --set num_chain=8 \\
         --set dim=4 --set ode_steps=2 ...       # a dry run of the script
 
-Builds the phi-four slice with ``build_mfm``, at its initial carry: the
-``phi-four`` preset with field_precision=highest and pallas_field=true
-(the fused field kernel) unless ``--set`` says otherwise;
-``--set field_precision=default --set pallas_field=false`` profiles the
-preset as shipped (the bf16 nn.Module field). It prints two JSON lines:
+Builds the example's run with ``build_mfm``, at its initial carry. For
+``phi-four`` (the default) that is the preset with field_precision=highest
+and pallas_field=true (the fused field kernel) unless ``--set`` says
+otherwise; ``--set field_precision=default --set pallas_field=false``
+profiles the preset as shipped (the bf16 nn.Module field). Any other
+``--example`` runs its preset as shipped, with ``--set`` on top. A stage is
+timed with the tangents the run's divergence gives it: the d basis vectors
+(exact) or one probe (Hutchinson); the K1 piece only where the run uses K1.
+It prints two JSON lines:
 
 1. ``pieces``: host-clock ms per call, after a warm call, over ``--reps``
    calls that end in a device synchronisation: a MALA-type and a flow-type
@@ -41,7 +46,7 @@ from torch.func import grad_and_value
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from mfm_tpu_torch.cli import _parse_set  # noqa: E402
+from mfm_tpu_torch.cli import EXAMPLES, _parse_set  # noqa: E402
 from mfm_tpu_torch.config import preset  # noqa: E402
 from mfm_tpu_torch.drivers.mfm import (  # noqa: E402
     _interleave_is_flow,
@@ -49,9 +54,9 @@ from mfm_tpu_torch.drivers.mfm import (  # noqa: E402
     make_generator,
     next_beta,
 )
-from mfm_tpu_torch.flows import apply_gradients, exact_divergence  # noqa: E402
+from mfm_tpu_torch.flows import apply_gradients, draw_probe  # noqa: E402
+from mfm_tpu_torch.flows.cnf import _DIVERGENCES  # noqa: E402
 from mfm_tpu_torch.ops.field import field_apply, field_layout, pack_field_params  # noqa: E402
-from mfm_tpu_torch.targets import PhiFour  # noqa: E402
 from mfm_tpu_torch.targets.base import generic_score_gate  # noqa: E402
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
@@ -108,10 +113,11 @@ def profiled(fn, device):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--example", default="phi-four", choices=list(EXAMPLES))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--mala-steps", type=int, default=10)
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                    help="override a field of the phi-four preset (repeatable)")
+                    help="override a field of the example's preset (repeatable)")
     args = ap.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -120,10 +126,14 @@ def main():
             capture_output=True, text=True, check=True,
         ).stdout.strip(), flush=True)
 
-    overrides = {"field_precision": "highest", "pallas_field": True, **_parse_set(args.set)}
-    cfg = preset("phi-four", **overrides)
+    fused = {"field_precision": "highest", "pallas_field": True}
+    overrides = {**(fused if args.example == "phi-four" else {}), **_parse_set(args.set)}
+    cfg = preset(args.example, **overrides)
     cfg.seed = 0
-    target = PhiFour(cfg.dim)
+    if args.example == "phi-four":  # the only example whose --set may change dim
+        target = EXAMPLES[args.example].func(cfg.dim, device=device)
+    else:
+        target = EXAMPLES[args.example](device=device)
     pieces = build_mfm(target, cfg, device, torch.Generator().manual_seed(0))
     gen = make_generator(device, 0)
     carry = pieces.init_fn(target.init_positions(gen, cfg.num_chain))
@@ -131,7 +141,7 @@ def main():
     mala_count = next(c for c in range(1, 1000)
                       if not _interleave_is_flow(c, cfg.mcmc_per_flow_steps))
     noise = {c: pieces.draw_step_noise(gen, c) for c in (mala_count, flow_count)}
-    print(f"cfg B={cfg.num_chain} d={cfg.dim} widths={tuple(cfg.hidden_xt)} "
+    print(f"cfg {args.example} B={cfg.num_chain} d={cfg.dim} widths={tuple(cfg.hidden_xt)} "
           f"F={cfg.fourier_dim} ode_steps={cfg.ode_steps} {cfg.divergence} "
           f"field_precision={cfg.field_precision} pallas_field={cfg.pallas_field}", flush=True)
 
@@ -139,10 +149,12 @@ def main():
     x = carry.chain.position.contiguous()
     B, d = x.shape
     t = torch.full((B,), 0.5, device=device)
-    basis = torch.eye(d, device=device)[:, None, :].expand(d, B, d).contiguous()
-    layout = field_layout(params, cfg.fourier_dim)
-    packed = pack_field_params(params, layout)
-    freqs = pieces.net.fourier_freqs.contiguous()
+    probe = draw_probe(pieces.transport, gen, B, d)  # None unless Hutchinson
+    if probe is None:
+        basis = torch.eye(d, device=device)[:, None, :].expand(d, B, d).contiguous()
+    else:
+        basis = probe.reshape(-1, B, d).contiguous()  # the stage's tangents: the probes
+    div_fn = _DIVERGENCES.get(cfg.divergence, _DIVERGENCES["exact"])
     f = pieces.field_bind(params)
     loss_grad = grad_and_value(pieces.loss_fn)
     grads, _ = loss_grad(params, x, noise[mala_count][1])
@@ -153,11 +165,8 @@ def main():
     dfield = torch.zeros_like(basis)
     with torch.no_grad():
         stage = {
-            "stage_exact_div_ms": host_ms(lambda: exact_divergence(f, x, t), reps, device),
-            "stage_K1_ms": host_ms(
-                lambda: field_apply(packed, layout, cfg.non_linearity, freqs, x, t, basis),
-                reps, device,
-            ),
+            f"stage_{cfg.divergence}_div_ms": host_ms(
+                lambda: div_fn(f, x, t, probe), reps, device),
             # in place on field and dfield (the fused route): fine for timing
             "stage_score_gate_ms": host_ms(
                 lambda: pieces.net.score_gate(x, gate, field, basis, dfield), reps, device
@@ -166,8 +175,17 @@ def main():
                 lambda: generic_score_gate(target.score, x, gate, field, basis, dfield),
                 reps, device,
             ),
-            "transport_fwd_ms": host_ms(lambda: pieces.transport.forward(params, x), 1, device),
+            "transport_fwd_ms": host_ms(
+                lambda: pieces.transport.forward(params, x, probe), 1, device),
         }
+        if cfg.pallas_field:
+            layout = field_layout(params, cfg.fourier_dim)
+            packed = pack_field_params(params, layout)
+            freqs = pieces.net.fourier_freqs.contiguous()
+            stage["stage_K1_ms"] = host_ms(
+                lambda: field_apply(packed, layout, cfg.non_linearity, freqs, x, t, basis),
+                reps, device,
+            )
     pieces_ms = {
         "step_mala_ms": host_ms(lambda: step(mala_count), reps, device),
         "step_flow_ms": host_ms(lambda: step(flow_count), 1, device),
