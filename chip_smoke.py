@@ -60,7 +60,21 @@ own; any failure exits non-zero before the final line:
 12. many-well on the fused fp32 field (K1 at d=32), 120 iterations;
 13. gaussian-mixture, 60 iterations;
 14-16. 4-mode with the CIS flow kernel (4 candidates), with independence
-   MH, and with the minibatch-OT coupling, 30 iterations each.
+   MH, and with the minibatch-OT coupling, 30 iterations each;
+17. the SMC baseline (--do-smc) on phi-four: 1024 particles, d=64, MALA at
+   the preset step on K3, systematic resampling, 1000 adaptive tempering
+   steps, with its log Z and final lambda;
+18. the SMC baseline on pines: d=1600, 128 particles, the Cox target on its
+   prior path, 500 steps (K2a at (128, 1600) at its eval);
+19. phi-four as shipped with NUTS as the MCMC move (static, depth 6, every
+   leapfrog a K3 launch), step and mass adaptation frozen at iteration 60,
+   100 iterations;
+20. the SMC baseline on 4-mode with HMC on the geometric path, waste-free
+   (P=4), 128 particles, 200 steps, 12,800 harvested samples (K2a, K2b);
+21. pines as shipped, 120 iterations, then 4 flow-annealed SMC steps
+   (--flow-smc 4) with latent MALA on 128 particles at d=1600 through the
+   transport with its Rademacher probes (a forward and a reverse pass a
+   move).
 
 The iteration counts are a small fraction of the presets' (the depth is cut
 so that the whole script stays well inside its time limit on a slow host);
@@ -70,7 +84,9 @@ iterations, on either field, and not at 120 or 200.
 
 The launch counters are zeroed just before phase 5 and read after the last
 phase: every kernel must have been launched by the main path, and each
-phase by the kernels it names. The line before
+phase by the kernels it names. Each phase prints its host ms a step
+(train_time over the steps: an SMC step, an MFM iteration, a flow-SMC
+tempering step). The line before
 last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -738,11 +754,16 @@ def run_cli(argv, label):
     wall = time.perf_counter() - t0
     row = {k: m[k] for k in ("logpdf", "stein_u", "stein_v", "mmd", "logpdf_star",
                              "stein_u_star", "stein_v_star", "mmd_star")}
-    print(f"[{label}] row {json.dumps(row)} metrics_kernel={m['metrics_kernel']} "
-          f"IS ESS {m['is_ess']:.3f}, {m['is_unique']} distinct resampled points; "
-          f"train_time {m['train_time']:.3f} s, {m['it_per_s']:.2f} it/s, wall {wall:.1f} s",
+    weights = ("no importance weights (SMC harvest)" if m["is_ess"] is None else
+               f"IS ESS {m['is_ess']:.3f}, {m['is_unique']} distinct resampled points")
+    extra = {k: m[k] for k in ("log_z", "lmbda", "step_size", "flow_smc_log_z",
+                               "flow_smc_lmbda", "flow_smc_ess_fraction", "flow_smc_time")
+             if k in m}
+    print(f"[{label}] row {json.dumps(row)} metrics_kernel={m['metrics_kernel']} {weights}; "
+          f"train_time {m['train_time']:.3f} s, {m['it_per_s']:.2f} it/s "
+          f"({1e3 / m['it_per_s']:.2f} host ms a step), wall {wall:.1f} s; {json.dumps(extra)}",
           flush=True)
-    if not all(math.isfinite(v) for v in row.values()):
+    if not all(math.isfinite(v) for v in (*row.values(), *extra.values())):
         fail(f"{label}: non-finite metric row")
     return m
 
@@ -791,6 +812,16 @@ def main():
         ([*short, "--num-importance-samples", "-1"], "15 4-mode independence MH",
          (K2A, K2B)),
         ([*short, "--ot-cond-flow"], "16 4-mode OT coupling", (K2A, K2B)),
+        (["--example", "phi-four", "--do-smc", "--learning-iter", "1000"], "17 phi-four SMC",
+         (K3, K2A)),
+        (["--example", "pines", "--do-smc", "--learning-iter", "500"], "18 pines SMC", (K2A,)),
+        (["--example", "phi-four", "--mcmc-kernel", "nuts", "--learning-iter", "100"],
+         "19 phi-four NUTS", (K3, GATE, K2A)),
+        (["--example", "4-mode", "--do-smc", "--mcmc-kernel", "hmc", "--set", "smc_path=geometric",
+          "--set", "waste_free_p=4", "--learning-iter", "200"], "20 4-mode HMC waste-free SMC",
+         (K2A, K2B)),
+        (["--example", "pines", "--learning-iter", "120", "--flow-smc", "4"], "21 pines flow-SMC",
+         (K2A,)),
     ]
     for argv, label, must in phases:
         before = [f.launches for f in counters]

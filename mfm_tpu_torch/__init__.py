@@ -7,15 +7,20 @@ reference every module here is tested against. The package keeps
 
 - ``targets``      unnormalised target densities (4-mode, 16-mode, phi-four)
                    and the flow references (Gaussian, bimodal, flat, phi^4)
-- ``kernels``      the ensemble MALA kernel and its accept/reject algebra
-- ``smc``          the fixed-iteration bisection used by tempering
+- ``kernels``      the ensemble MALA, HMC and NUTS kernels and their
+                   accept/reject algebra
+- ``adaptation``   dual averaging and the Welford mass (window adaptation)
+- ``smc``          adaptive tempered and waste-free SMC: resampling, ESS,
+                   the root solvers
 - ``flows``        the CNF vector field, ODE transport, flow-matching loss,
-                   the hand-written AdamW and the pullback random-walk MH
+                   the hand-written AdamW, the flow kernels and the
+                   latent pullback target
 - ``ops``          the CUDA kernels (fused field apply, pairwise Stein/RBF
                    sums, phi^4 value and score), each with its plain
                    PyTorch version
 - ``diagnostics``  Stein discrepancy and MMD
-- ``drivers``      the MFM training loop, final sampling and evaluation
+- ``drivers``      the MFM training loop, the SMC and flow-SMC drivers,
+                   final sampling and evaluation
 - ``utils``        flax -> torch parameter conversion
 
 It imports ``torch`` and never ``jax``. Randomness is injected: every

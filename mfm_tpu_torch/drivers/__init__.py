@@ -5,6 +5,7 @@ from mfm_tpu_torch.drivers.eval import (
     evaluate_samples,
     report_row,
 )
+from mfm_tpu_torch.drivers.flow_smc import FlowSMCResult, run_flow_smc
 from mfm_tpu_torch.drivers.mfm import (
     MFMRun,
     build_mfm,
@@ -13,6 +14,7 @@ from mfm_tpu_torch.drivers.mfm import (
     sample_flow,
     sample_flow_parts,
 )
+from mfm_tpu_torch.drivers.smc_run import SMCRunResult, run_smc
 
 __all__ = [
     "is_resample",
@@ -26,4 +28,8 @@ __all__ = [
     "run_mfm",
     "sample_flow",
     "sample_flow_parts",
+    "FlowSMCResult",
+    "run_flow_smc",
+    "SMCRunResult",
+    "run_smc",
 ]

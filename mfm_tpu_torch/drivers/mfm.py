@@ -1,21 +1,30 @@
 """The MFM training driver (counterpart of ``mfm_tpu.drivers.mfm``).
 
-Each iteration: one interleaved data move for the whole ensemble (MALA, or
-a flow kernel through the CNF every ``mcmc_per_flow_steps + 1`` iterations:
-pullback random-walk MH, independence MH or CIS by
-``num_importance_samples``), one flow-matching gradient step with the
-hand-written AdamW, and ESS-bisection tempering while beta < 1. After training,
-``sample_flow_parts`` pushes reference draws through the transport and
-importance-resamples them.
+Each iteration: one interleaved data move for the whole ensemble (an MCMC
+step of ``cfg.mcmc_kernel``, MALA, HMC or NUTS, or a flow kernel through the
+CNF every ``mcmc_per_flow_steps + 1`` iterations: pullback random-walk MH,
+independence MH or CIS by ``num_importance_samples``), one flow-matching
+gradient step with the hand-written AdamW, and ESS-bisection tempering while
+beta < 1. After training, ``sample_flow_parts`` pushes reference draws
+through the transport and importance-resamples them.
+
+In-loop adaptation (``mfm_tpu/drivers/mfm.py:206-277,298-333``; on by
+default for hmc and nuts): the step size by dual averaging on the
+ensemble's mean acceptance, the diagonal inverse mass by Welford over
+pooled positions, refreshed every ``mass_refresh_every`` MCMC steps
+(counted through the Welford count) with the step re-anchored, and both
+frozen after ``adapt_freeze_fraction * learning_iter`` iterations. Whether
+an iteration is frozen or refreshes is known on the host from the
+counters; the step size stays on the device.
 
 The reference scans the loop on device; here it is a Python loop over
 chunks, with the iteration's kind decided on the host from the counter.
-Randomness is injected: ``step_fn`` takes the iteration's noise
-(``MalaNoise`` or the flow kernel's own tuple, and ``FMNoise``) and
+Randomness is injected: ``step_fn`` takes the iteration's noise (the MCMC
+kernel's noise tuple or the flow kernel's, and ``FMNoise``) and
 ``draw_step_noise`` draws it from a ``torch.Generator``. Parameters are a ``{name: tensor}``
 dict carried in the state, as the reference carries its flax tree.
 
-Not ported yet: hmc/nuts and in-loop adaptation, meshes and checkpoints.
+Not ported yet: meshes and checkpoints.
 """
 
 import time
@@ -24,6 +33,14 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch.func import functional_call, grad_and_value
 
+from mfm_tpu_torch.adaptation.window import (
+    da_init,
+    da_update,
+    welford_init,
+    welford_update_batch,
+    welford_variance,
+)
+from mfm_tpu_torch.drivers.smc_run import _make_kernel_builder
 from mfm_tpu_torch.flows import (
     FlowTarget,
     VectorFieldNet,
@@ -47,6 +64,7 @@ from mfm_tpu_torch.flows.flow_mh import CisNoise, IndepNoise, RwmNoise  # noqa: 
 from mfm_tpu_torch.flows.train import TrainState
 from mfm_tpu_torch.flows.vector_field import PRECISIONS
 from mfm_tpu_torch.kernels import ChainState, mala
+from mfm_tpu_torch.kernels.mala import MalaNoise  # noqa: F401  (re-exported)
 from mfm_tpu_torch.ops.field import ACTIVATIONS, check_fits, field_layout
 from mfm_tpu_torch.smc.solvers import bisection
 from mfm_tpu_torch.targets import make_ref_dist
@@ -57,6 +75,11 @@ class MFMCarry(NamedTuple):
     chain: ChainState
     train: TrainState
     beta: torch.Tensor
+    # in-loop adaptation (None when off): dual-averaging state, Welford mass
+    # accumulator, diagonal inverse mass; one for the whole ensemble
+    da: object = None
+    wf: object = None
+    inv_mass: Optional[torch.Tensor] = None
 
 
 class MFMRun(NamedTuple):
@@ -68,11 +91,6 @@ class MFMRun(NamedTuple):
     transport: object
     ref_dist: Target
     net: VectorFieldNet
-
-
-class MalaNoise(NamedTuple):
-    noise: torch.Tensor  # (B, d) standard normal
-    u_accept: torch.Tensor  # (B,) uniform
 
 
 class FMNoise(NamedTuple):
@@ -138,10 +156,7 @@ def set_field_precision(field_precision: str) -> None:
 
 
 def _check_ported(cfg) -> None:
-    astep, amass, _ = cfg.resolved_adaptation()
     unported = {
-        "mcmc_kernel": cfg.mcmc_kernel != "mala",
-        "adapt_step_size/adapt_mass": astep or amass,
         "mesh_shape": cfg.mesh_shape is not None,
         "checkpoint_dir": cfg.checkpoint_dir is not None,
     }
@@ -204,6 +219,11 @@ def build_mfm(
         eps=cfg.adam_epsilon, gradient_clip=cfg.gradient_clip,
     )
     vs_fn = target.tempered_value_and_score
+    mcmc_builder, draw_mcmc_noise = _make_kernel_builder(cfg)
+    adapt_step, adapt_mass, target_acc = cfg.resolved_adaptation()
+    adapting = adapt_step or adapt_mass
+    # adaptation stays live through this iteration (counts run 1..learning_iter)
+    freeze_iter = int(cfg.adapt_freeze_fraction * cfg.learning_iter)
     flow_kernel = select_flow_kernel(cfg.num_importance_samples)
     draw_flow_noise = flow_noise_sampler(cfg.num_importance_samples)
     conditional = cfg.cond_flow or cfg.ot_cond_flow
@@ -229,7 +249,33 @@ def build_mfm(
             beta = next_beta(0.0, target.log_lik(init_positions), cfg.alpha, B)
         chain = mala.init(init_positions, lambda x: vs_fn(x, beta))
         train = create_train_state(field_params(net), tx)
-        return MFMCarry(chain, train, beta)
+        if not adapting:
+            return MFMCarry(chain, train, beta)
+        dev = init_positions.device
+        return MFMCarry(chain, train, beta, da_init(cfg.step_size, dev), welford_init(d, dev),
+                        torch.ones(d, device=dev))
+
+    def step_size_of(da, count: int):
+        """The step the kernel takes at iteration ``count``: the averaged one
+        once frozen."""
+        if not adapt_step:
+            return cfg.step_size
+        return torch.exp(da.log_step_avg if count > freeze_iter else da.log_step)
+
+    def update_adaptation(acc, position, da, wf, inv_mass):
+        """Dual averaging on the mean acceptance; Welford over the pooled
+        positions, a mass refresh (and a re-anchored step) once the Welford
+        count reaches ``mass_refresh_every`` MCMC steps. Called only before
+        the freeze."""
+        if adapt_step:
+            da = da_update(da, torch.nan_to_num(torch.mean(acc), nan=0.0), target_acc)
+        if adapt_mass:
+            wf = welford_update_batch(wf, position)
+            if wf.count >= cfg.mass_refresh_every * B:
+                inv_mass = welford_variance(wf)
+                wf = welford_init(d, position.device)
+                da = da_init(torch.exp(da.log_step_avg))
+        return da, wf, inv_mass
 
     def draw_step_noise(gen: torch.Generator, count: int):
         dev = gen.device
@@ -238,10 +284,7 @@ def build_mfm(
         elif _interleave_is_flow(count, cfg.mcmc_per_flow_steps):
             move = draw_flow_noise(gen, transport, ref_dist.sample, B, d)
         else:
-            move = MalaNoise(
-                torch.randn((B, d), generator=gen, device=dev),
-                torch.rand(B, generator=gen, device=dev),
-            )
+            move = draw_mcmc_noise(gen, B, d)
         fm = FMNoise(
             torch.rand(B, generator=gen, device=dev),
             ref_dist.sample(gen, (B,)) if conditional else None,
@@ -250,28 +293,31 @@ def build_mfm(
         )
         return move, fm
 
-    def data_step(chain, params, beta, count, noise):
+    def data_step(carry: MFMCarry, count, noise):
+        """(chain, acceptance, da, wf, inv_mass) after the iteration's move."""
+        chain, da, wf, inv_mass = carry.chain, carry.da, carry.wf, carry.inv_mass
         if use_real_samples:
             zeros = torch.zeros(B, device=noise.device)
-            return ChainState(noise, zeros, torch.zeros_like(noise)), torch.full_like(
-                zeros, torch.nan
-            )
-        vs = lambda x: vs_fn(x, beta)
+            nan = torch.full_like(zeros, torch.nan)
+            return ChainState(noise, zeros, torch.zeros_like(noise)), nan, da, wf, inv_mass
+        vs = lambda x: vs_fn(x, carry.beta)
         if _interleave_is_flow(count, cfg.mcmc_per_flow_steps):
             tgt = FlowTarget(vs, ref_dist.log_prob, ref_dist.sample)
-            new, info = flow_kernel(chain, params, transport, tgt, *noise)
-        else:
-            new, info = mala.build_kernel(vs)(chain, cfg.step_size, *noise)
-        return new, info.acceptance_rate
+            new, info = flow_kernel(chain, carry.train.params, transport, tgt, *noise)
+            return new, info.acceptance_rate, da, wf, inv_mass
+        kernel = mcmc_builder(vs, (step_size_of(da, count), inv_mass))
+        new, info = kernel(chain, noise)
+        if adapting and count <= freeze_iter:
+            da, wf, inv_mass = update_adaptation(info.acceptance_rate, new.position, da, wf,
+                                                 inv_mass)
+        return new, info.acceptance_rate, da, wf, inv_mass
 
     def temper_step(chain, beta):
         new_beta = next_beta(beta, target.log_lik(chain.position), cfg.alpha, B)
         return mala.init(chain.position, lambda x: vs_fn(x, new_beta)), new_beta
 
     def step_fn(carry: MFMCarry, count: int, move_noise, fm_noise: FMNoise):
-        chain, acc = data_step(
-            carry.chain, carry.train.params, carry.beta, count, move_noise
-        )
+        chain, acc, da, wf, inv_mass = data_step(carry, count, move_noise)
         grads, loss = loss_and_grad(carry.train.params, chain.position, fm_noise)
         train = apply_gradients(carry.train, grads, tx)
         beta = carry.beta
@@ -285,7 +331,9 @@ def build_mfm(
             "acceptance_std": torch.sqrt(torch.nanmean((acc - mean) ** 2)),
             "beta": beta,
         }
-        return MFMCarry(chain, train, beta), metrics
+        if adapt_step:  # after this iteration's update (the averaged one once frozen)
+            metrics["step_size"] = step_size_of(da, count)
+        return MFMCarry(chain, train, beta, da, wf, inv_mass), metrics
 
     return MFMPieces(
         step_fn=step_fn, init_fn=init_fn, draw_step_noise=draw_step_noise, net=net,

@@ -32,7 +32,10 @@ p . (J p) over them. Both estimate the continuous flow's logdet.
 moves the particles: the d basis tangents ride the RK4/Heun/Euler map
 itself (each stage's tangent is J . E at that stage's point, combined with
 the step's own weights), and a batched ``slogdet`` of the assembled
-(B, d, d) Jacobian closes it; d <= ``EXACT_DISC_MAX_D``. The transport runs
+(B, d, d) Jacobian closes it; d <= ``EXACT_DISC_MAX_D``. ``forward`` and
+``inverse`` of ``exact`` and ``hutchinson`` are differentiable in their
+input through ``torch.autograd`` and ``torch.func.grad`` (nothing is taped
+when no input requires grad); ``exact_disc`` and ``forward_traj`` run
 without autograd.
 """
 
@@ -255,10 +258,11 @@ def make_transport(
         return dyn, (y, torch.zeros(y.shape[:1], dtype=y.dtype, device=y.device))
 
     def _run(params, y, probe, sign):
+        # no no_grad here: a caller that differentiates in u (the pullback
+        # target, ``flows/pullback.py``) takes its gradient through the solve
         _check_probe(probe)
         dyn, y0 = _problem(params, y, probe, sign)
-        with torch.no_grad():
-            return odeint_grid(dyn, y0, 0.0, 1.0, n_steps, method)
+        return odeint_grid(dyn, y0, 0.0, 1.0, n_steps, method)
 
     def forward(params, u, probe: Optional[torch.Tensor] = None):
         return _run(params, u, probe, +1)

@@ -4,11 +4,12 @@ Proposal x' = x + h grad + sqrt(2h) noise, accepted with the asymmetric MH
 ratio exp(E(x -> x') - E(x' -> x)), E(a -> b) = -log pi(a) +
 ||b - a - h grad(a)||^2 / (4h). ``noise`` (B, d) and ``u_accept`` (B,) are
 injected: they are the standard normal and uniform draws the reference
-takes from ``key_noise`` and ``key_accept``.
+takes from ``key_noise`` and ``key_accept`` (``MalaNoise``, drawn by
+``draw_noise``).
 """
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -18,6 +19,18 @@ from mfm_tpu_torch.kernels.proposal import (
     proposal_from_energy_diff,
     static_binomial_sampling,
 )
+
+
+class MalaNoise(NamedTuple):
+    noise: torch.Tensor  # (B, d) standard normal
+    u_accept: torch.Tensor  # (B,) uniform
+
+
+def draw_noise(gen: torch.Generator, B: int, d: int) -> MalaNoise:
+    dev = gen.device
+    return MalaNoise(
+        torch.randn((B, d), generator=gen, device=dev), torch.rand(B, generator=gen, device=dev)
+    )
 
 
 def init(position: torch.Tensor, value_and_score: Callable) -> ChainState:
@@ -32,16 +45,18 @@ def _transition_energy(logdensity_a, pos_a, grad_a, pos_b, step_size):
 
 
 def build_kernel(value_and_score: Callable) -> Callable:
-    """``kernel(state, step_size, noise, u_accept) -> (state, info)``."""
+    """``kernel(state, step_size, noise, u_accept) -> (state, info)``;
+    ``step_size`` a number or a 0-d tensor."""
 
     def kernel(
         state: ChainState, step_size: float, noise: torch.Tensor, u_accept: torch.Tensor
     ) -> Tuple[ChainState, ChainInfo]:
-        proposed = (
-            state.position
-            + step_size * state.logdensity_grad
-            + math.sqrt(2.0 * step_size) * noise
-        )
+        # a step size on the device (dual averaging) stays there
+        if isinstance(step_size, torch.Tensor):
+            scale = torch.sqrt(2.0 * step_size)
+        else:
+            scale = math.sqrt(2.0 * step_size)
+        proposed = state.position + step_size * state.logdensity_grad + scale * noise
         prop_logdensity, prop_grad = value_and_score(proposed)
         fwd = _transition_energy(
             state.logdensity, state.position, state.logdensity_grad, proposed, step_size

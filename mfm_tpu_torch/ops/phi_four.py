@@ -18,7 +18,11 @@ derivatives (an ``autograd.Function`` around it); calls that need none
 ``phi_four_score_gate`` is what a transport stage adds for the score gate
 ``gate * clip(score(x))`` of the field: the term itself, and its
 derivative ``gate * m * (H e)`` along every tangent (``m`` the clip's
-inside mask), in one launch, in place (see ``csrc/phi_four.cu``).
+inside mask), in one launch, in place (see ``csrc/phi_four.cu``). It is
+forward only: the kernel writes through raw pointers, which no autograd
+tape sees, so it and its plain version refuse inputs that require grad
+(``torch.autograd`` or a ``torch.func`` transform such as ``grad``), as K1
+does (``ops/field.py``).
 """
 
 import functools
@@ -67,6 +71,17 @@ def phi_four_hvp(x, e, a: float = 0.1, beta: float = 20.0, pbc: bool = False):
     return -beta * ((3.0 * x * x - 1.0) / coef * e + coef * (2.0 * e - left - right))
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    """The score gate is forward only: raise if any input carries a
+    gradient, whether taped by autograd or traced by ``torch.func.grad``
+    (both show as ``requires_grad``)."""
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: an input requires grad; the score gate is forward only "
+            "(a gradient through a transport needs a target without the fused gate)"
+        )
+
+
 def phi_four_score_gate_plain(
     x, gate, field, ex=None, dfield=None, a: float = 0.1, beta: float = 20.0,
     pbc: bool = False, bc_value: float = 0.0, tilt_lambda: float = 0.0,
@@ -74,7 +89,9 @@ def phi_four_score_gate_plain(
 ):
     """Plain PyTorch version of the score-gate kernel, in place:
     ``field += gate * clip(s)`` and ``dfield += gate * m * (H ex)``, with the
-    tangents (K, B, d) broadcast against x (B, d). Returns (field, dfield)."""
+    tangents (K, B, d) broadcast against x (B, d). Returns (field, dfield).
+    Refuses inputs that require grad, as the kernel does."""
+    _refuse_grad("phi_four_score_gate_plain", x, gate, field, ex, dfield)
     d = x.shape[-1]
     _, score = phi_four_value_and_score_plain(x, a, beta, pbc, bc_value)
     if tilt_lambda != 0.0:
@@ -144,7 +161,9 @@ def phi_four_score_gate(
     (H ex)``; ``clip`` None clamps nothing and masks nothing. x, gate, field
     (B, d) and ex, dfield (K, B, d) contiguous float32. Returns (field,
     dfield). The plain version for CPU tensors, ``csrc/phi_four.cu`` for
-    CUDA tensors (or raises)."""
+    CUDA tensors (or raises). Forward only: raises if an input requires
+    grad."""
+    _refuse_grad("phi_four_score_gate", x, gate, field, ex, dfield)
     if x.device.type == "cpu":
         return phi_four_score_gate_plain(
             x, gate, field, ex, dfield, a, beta, pbc, bc_value, tilt_lambda, tilt_val, clip

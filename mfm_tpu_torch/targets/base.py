@@ -59,6 +59,9 @@ class Target:
     """
 
     dim: int
+    # False where ``score_gate`` is a forward-only kernel: a transport through
+    # it cannot be differentiated in u (``flows/pullback.py`` refuses it)
+    score_gate_differentiable = True
 
     def log_lik(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError

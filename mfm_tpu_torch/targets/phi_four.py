@@ -15,9 +15,10 @@ second derivative through ``log_lik`` (forward over reverse) sees the
 Hessian. ``value_and_score`` (MALA, the flow-MH accept) needs no derivative
 and calls K3's launcher without the custom op's dispatch.
 
-A transport never differentiates the score: ``score_gate`` does a stage's
-score gate with all its tangents in one launch of the fused kernel
-(``ops.phi_four.phi_four_score_gate``).
+``score_gate`` does a transport stage's score gate with all its tangents
+in one launch of the fused kernel (``ops.phi_four.phi_four_score_gate``),
+which is forward only: a transport through it cannot be differentiated in
+u (``score_gate_differentiable`` is False; the gate raises if asked).
 """
 
 import math
@@ -85,6 +86,8 @@ class _LogLik(_StencilFunction):
 
 
 class PhiFour(Target):
+    score_gate_differentiable = False  # the fused gate is forward only
+
     def __init__(
         self,
         dim: int,

@@ -543,3 +543,118 @@ def test_phi_four_transport_takes_the_fused_gate(cuda, monkeypatch):
         # 12 x 64 diagonal terms
         assert float((x - ref[0]).abs().max()) <= 1e-4
         assert float((logdet - ref[1]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("route", ["autograd", "func.grad"])
+def test_score_gate_kernel_refuses_autograd(cuda, route):
+    """The kernel writes field and dfield through raw pointers, which no
+    tape sees: an input that requires grad is refused on either route."""
+    x, gate, field, ex, dfield = _gate_inputs(cuda, 8, 16, 2, 0)
+    if route == "autograd":
+        with pytest.raises(ValueError, match="requires grad"):
+            phi_four.phi_four_score_gate(x.requires_grad_(True), gate, field, ex, dfield)
+    else:
+        from torch.func import grad
+
+        with pytest.raises(ValueError, match="requires grad"):
+            grad(lambda y: phi_four.phi_four_score_gate(y, gate, field, ex, dfield)[0].sum())(x)
+
+
+def _phi_four_chains(dev, B, seed):
+    from mfm_tpu_torch.kernels import ChainState
+
+    target = PhiFour(64)
+    gen = torch.Generator().manual_seed(seed)
+    x = (1.6 * torch.rand((B, 64), generator=gen) - 0.8).to(dev)
+    return target, ChainState(x, *target.value_and_score(x)), gen
+
+
+@pytest.mark.parametrize("variant,depth", [("static", 6), ("iterative", 8)])
+def test_nuts_step_on_k3_matches_the_plain_version(cuda, variant, depth):
+    """A NUTS step on PhiFour(64), every leapfrog a K3 launch, against the
+    same step on the CPU plain version with the same noise: positions to
+    1e-4 (fp32 sums in another order, through up to 2^depth - 1
+    leapfrogs), the trees' depths, u-turn and divergence flags equal."""
+    from mfm_tpu_torch.kernels import nuts
+
+    B = 256
+    target, state, gen = _phi_four_chains(cuda, B, 7)
+    noise = nuts.draw_noise(gen, B, 64, depth, variant)
+    inv_mass = 0.5 + torch.rand(64, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda):
+        kernel = nuts.build_kernel(target.value_and_score, depth, variant=variant)
+        st = type(state)(*(v.to(dev) for v in state))
+        before = phi_four.phi_four_value_and_score.launches
+        new, info = kernel(st, 0.02, inv_mass.to(dev), type(noise)(*(v.to(dev) for v in noise)))
+        out[str(dev)] = (new, info, phi_four.phi_four_value_and_score.launches - before)
+    (cpu, cpu_info, _), (gpu, gpu_info, launches) = out["cpu"], out[str(cuda)]
+    assert launches >= 2 ** int(gpu_info.num_doublings.max()) - 1
+    assert float((gpu.position.cpu() - cpu.position).abs().max()) <= 1e-4
+    for f in ("num_doublings", "is_turning", "is_divergent"):
+        assert torch.equal(getattr(gpu_info, f).cpu(), getattr(cpu_info, f)), f
+    assert int(gpu_info.num_doublings.max()) >= 3
+
+
+def test_smc_step_on_k3_matches_the_plain_version(cuda):
+    """One adaptive tempered SMC step (ESS solve, systematic resampling,
+    two MALA moves, reweighing) on PhiFour(64), K3 on the card against the
+    CPU plain version with the same noise."""
+    from mfm_tpu_torch.config import MFMConfig
+    from mfm_tpu_torch.drivers.smc_run import build_smc
+
+    cfg = MFMConfig(example="phi-four", dim=64, num_chain=512, step_size=1e-4,
+                    anneal_iter=400, num_anneal_temp=200)
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for dev in ("cpu", cuda):
+        pieces = build_smc(PhiFour(64), cfg)
+        g = torch.Generator().manual_seed(3)
+        carry = pieces.init_fn(pieces.target.init_positions(g, cfg.num_chain).to(dev))
+        noise = pieces.draw_step_noise(gen.manual_seed(4))
+        noise = type(noise)(noise.resample.to(dev), [type(m)(*(v.to(dev) for v in m))
+                                                     for m in noise.moves])
+        before = phi_four.phi_four_value_and_score.launches
+        carry, info = pieces.step_fn(carry, noise)
+        out[str(dev)] = (carry, info, phi_four.phi_four_value_and_score.launches - before)
+    (cpu, cpu_info, _), (gpu, gpu_info, launches) = out["cpu"], out[str(cuda)]
+    assert launches >= 4  # the ESS solve's log-likelihood, two moves and their init, reweighing
+    assert abs(float(gpu.state.lmbda) - float(cpu.state.lmbda)) <= 1e-5
+    assert 0.0 < float(cpu.state.lmbda) < 1.0
+    assert torch.equal(gpu_info.ancestors.cpu(), cpu_info.ancestors)
+    assert float((gpu.state.particles.cpu() - cpu.state.particles).abs().max()) <= 1e-4
+    assert _rel_err(gpu.state.weights.cpu(), cpu.state.weights) <= 1e-4
+
+
+def test_pullback_gradient_on_pines_matches_central_differences(cuda):
+    """The latent target's score on pines (d=1600, a small module field,
+    Hutchinson with a fixed probe): one forward and one reverse pass
+    through the transport, against central differences of the value along
+    4 random unit directions. The field is tanh (a relu field's kinks break
+    central differences); the values are ~2e3 in fp32, so rounding rules
+    below h = 0.1, where the CPU measured at most 2.6e-3 of the largest
+    derivative: 1e-2."""
+    from mfm_tpu_torch.flows.pullback import FlowPullbackTarget
+    from mfm_tpu_torch.targets import PriorReference
+
+    target = LogGaussianCoxPines(1600, device=cuda)
+    net, params = _net(cuda, 1600, 32, 8, act="tanh", score_fn=target.score, gate_scale=1e-4,
+                       seed=6)
+    transport = make_transport(module_tangent_field(net), divergence="hutchinson", n_steps=3)
+    ref = PriorReference(target)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B = 8
+    u = ref.sample(gen, (B,))
+    probes = {B: torch.randn((B, 1600), generator=gen, device=cuda)}
+    latent = FlowPullbackTarget(target, transport, params, ref, probes)
+    beta = 0.5
+    value, score = latent.tempered_value_and_score(u, beta)
+    assert torch.allclose(value, latent.tempered_log_prob(u, beta), rtol=1e-6, atol=1e-3)
+    h = 0.1
+    for i in range(4):
+        v = torch.randn((B, 1600), generator=gen, device=cuda)
+        v = v / v.norm(dim=-1, keepdim=True)
+        fd = (latent.tempered_log_prob(u + h * v, beta)
+              - latent.tempered_log_prob(u - h * v, beta)) / (2 * h)
+        dd = torch.sum(score * v, -1)
+        assert float((fd - dd).abs().max()) <= 1e-2 * float(dd.abs().max()), i

@@ -18,8 +18,14 @@ fp32 on XLA:CPU (bf16 only on a TPU), so the port runs 'highest' against
 it; a second run of the port with its bf16 field checks that path end to
 end (tests/test_torch_precision.py holds the bf16 arithmetic itself).
 
+The same slice with HMC and NUTS as the MCMC move, with in-loop
+adaptation over eight replayed steps (a mass refresh at the third MCMC
+step, the freeze after the fourth iteration; hmc.py:60,63, nuts.py), to
+1e-4 on positions, the metrics and the step size.
+
 Also: the port's packages import no JAX, the CLI runs every example and
-flag that has a path and refuses what is not ported yet.
+flag that has a path (the SMC baseline, NUTS, flow-SMC among them) and
+refuses what is not ported yet.
 """
 
 import subprocess
@@ -51,9 +57,11 @@ from mfm_tpu_torch.drivers.mfm import (
 )
 from mfm_tpu_torch.flows import make_transport
 from mfm_tpu_torch.flows.train import AdamWFiniteState, TrainState
+from mfm_tpu_torch.adaptation.window import DualAveragingState, WelfordState
 from mfm_tpu_torch.kernels import ChainState
+from mfm_tpu_torch.kernels.hmc import HMCNoise
 from mfm_tpu_torch.utils.convert import params_from_flax
-from torch_parity import npy, tt
+from torch_parity import npy, nuts_noise, tt
 
 torch.set_num_threads(1)
 
@@ -95,6 +103,11 @@ def reference():
 def _port_carry(jcarry) -> MFMCarry:
     c, tr = jcarry.chain, jcarry.train
     opt = tr.opt_state
+    adapt = ()
+    if jcarry.da is not None:
+        adapt = (DualAveragingState(*(tt(v) for v in jcarry.da)),
+                 WelfordState(tt(jcarry.wf.mean), tt(jcarry.wf.m2), int(jcarry.wf.count)),
+                 tt(jcarry.inv_mass))
     return MFMCarry(
         ChainState(tt(c.position), tt(c.logdensity), tt(c.logdensity_grad)),
         TrainState(
@@ -108,6 +121,7 @@ def _port_carry(jcarry) -> MFMCarry:
             ),
         ),
         tt(jcarry.beta),
+        *adapt,
     )
 
 
@@ -292,6 +306,60 @@ def test_pines_slice_runs_with_the_bf16_field(pines_reference):
     assert bool(torch.isfinite(carry.chain.position).all())
 
 
+# 8 iterations: MCMC at 1-3 and 5-7, flow at 4 and 8; a mass refresh at 3
+# (3 MCMC steps of 16 chains), frozen after 4. Dual averaging feeds each
+# acceptance back into the next step size, which doubles an fp32
+# difference a step while the count is small: a short run keeps 1e-4.
+N_ADAPT = 8
+ADAPT_CFG = dict(CFG, learning_iter=N_ADAPT, chunk_size=N_ADAPT, mass_refresh_every=3,
+                 adapt_freeze_fraction=0.5, hmc_num_integration_steps=4, nuts_max_depth=3,
+                 step_size=2e-3)
+
+
+@pytest.mark.parametrize("kernel", ["hmc", "nuts"])
+def test_slice_with_trajectory_kernel_and_adaptation(kernel):
+    """Eight iterations with HMC or NUTS (static, depth 3) on the MCMC
+    steps and in-loop adaptation: dual averaging, the Welford mass
+    refreshed once the count reaches 3 MCMC steps (at iteration 3), and
+    the freeze after iteration 4, whose steps take the averaged step size."""
+    target = jt.PhiFour(D)
+    jcfg = JConfig(**ADAPT_CFG, mcmc_kernel=kernel)
+    pieces_j = j_build(target, jcfg, jax.random.PRNGKey(0))
+    carry_j = jax.jit(pieces_j.init_fn)(target.init_positions(jax.random.PRNGKey(1), B))
+    step_j = jax.jit(pieces_j.step_fn)
+    cfg = MFMConfig(**ADAPT_CFG, mcmc_kernel=kernel)
+    pieces = build_mfm(pt.PhiFour(D), cfg, "cpu", torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        pieces.net.fourier_freqs.copy_(tt(pieces_j.fourier))
+    carry = _port_carry(carry_j)
+    masses = []
+    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(2), N_ADAPT)):
+        count = i + 1
+        carry_j, m_j = step_j(carry_j, (key, jnp.asarray(count)))
+        move, fm = _replayed_noise(key, count)
+        if not _interleave_is_flow(count, CFG["mcmc_per_flow_steps"]):
+            k_gen = jax.random.split(key)[0]
+            if kernel == "hmc":
+                km, ka = jax.random.split(k_gen)
+                move = HMCNoise(tt(jax.random.normal(km, (B, D))),
+                                tt(jax.random.uniform(ka, (B,))))
+            else:
+                move = nuts_noise(k_gen, B, D, 3, "static")
+        carry, m = pieces.step_fn(carry, count, move, fm)
+        for k, v in m_j.items():
+            np.testing.assert_allclose(float(m[k]), float(v), rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{count} {k}")
+        assert carry.wf.count == int(carry_j.wf.count), count
+        masses.append(npy(carry.inv_mass).copy())
+        np.testing.assert_allclose(masses[-1], np.asarray(carry_j.inv_mass), rtol=1e-4)
+        np.testing.assert_allclose(npy(carry.chain.position), np.asarray(carry_j.chain.position),
+                                   atol=1e-4, err_msg=str(count))
+    assert np.all(masses[1] == 1.0) and not np.allclose(masses[2], 1.0), "refreshed at 3"
+    assert np.all(masses[-1] == masses[2]), "frozen: no refresh after"
+    np.testing.assert_allclose(float(m["step_size"]), float(jnp.exp(carry_j.da.log_step_avg)),
+                               rtol=1e-6)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, mfm_tpu_torch, mfm_tpu_torch.cli, mfm_tpu_torch.drivers; "
@@ -302,8 +370,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--example", "pines", "--flow-smc", "4"], "not ported"),
-    (["--example", "4-mode", "--do-smc"], "not ported"),
+    (["--example", "pines", "--do-fab"], "not ported"),
+    (["--example", "4-mode", "--defensive-alpha", "0.5"], "not ported"),
     (["--example", "4-mode", "--move-correct", "10"], "not ported"),
     (["--example", "4-mode", "--vmap-seeds"], "not ported"),
 ])
@@ -322,8 +390,8 @@ def test_unported_config_raises():
     cfg = MFMConfig(**{**CFG, "dim": 200, "divergence_mode": "exact_disc"})
     with pytest.raises(ValueError, match="exact_disc"):
         build_mfm(pt.PhiFour(200), cfg, "cpu", torch.Generator())
-    cfg = MFMConfig(**{**CFG, "mcmc_kernel": "nuts"})
-    with pytest.raises(NotImplementedError, match="mcmc_kernel"):
+    cfg = MFMConfig(**{**CFG, "mesh_shape": (1,)})
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
         build_mfm(pt.PhiFour(D), cfg, "cpu", torch.Generator())
 
 
@@ -361,17 +429,52 @@ _TINY = [
     ["--example", "many-well", "--check"],
     ["--example", "4-mode", "--set", "divergence_mode=exact_disc"],
     ["--example", "funnel", "--set", "divergence_mode=exact_disc", "--hutchs"],
+    ["--example", "phi-four", "--mcmc-kernel", "nuts", "--set", "step_size=1e-3"],
+    ["--example", "4-mode", "--mcmc-kernel", "hmc"],
+    ["--example", "pines", "--flow-smc", "2"],
 ], ids=lambda a: " ".join(a[1:]))
 def test_cli_runs_new_examples_and_flags(argv):
-    """Each example and flag of this slice end to end at a tiny size: a
-    finite metric row (pines has no sampler: its MMD is reported as 0)."""
+    """Each example and flag end to end at a tiny size: a finite metric row
+    (pines and phi-four have no sampler: their MMD is reported as 0)."""
     from mfm_tpu_torch import cli
 
     (m,) = cli.main(argv + _TINY)
     keys = ("logpdf", "stein_u", "stein_v", "mmd", "logpdf_star", "stein_u_star", "mmd_star")
     assert all(np.isfinite(m[k]) for k in keys), m
     assert ("stein_u_real" in m) == ("--check" in argv)
-    assert (m["mmd"] == 0.0) == (argv[1] == "pines")
+    assert (m["mmd"] == 0.0) == (argv[1] in ("pines", "phi-four"))  # no exact sampler
+    assert ("step_size" in m) == ("--mcmc-kernel" in argv)
+    if "--flow-smc" in argv:
+        assert 0.0 < m["flow_smc_lmbda"] <= 1.0 and 0.0 < m["flow_smc_ess_fraction"] <= 1.0
+        assert np.isfinite(m["flow_smc_log_z"]) and 1 <= m["is_unique"] <= 4 * 8
+
+
+@pytest.mark.parametrize("argv", [
+    ["--example", "4-mode"],
+    ["--example", "phi-four"],
+    ["--example", "4-mode", "--mcmc-kernel", "hmc", "--set", "smc_path=geometric",
+     "--set", "waste_free_p=4"],
+    ["--example", "4-mode", "--mcmc-kernel", "nuts", "--set", "nuts_max_depth=3"],
+], ids=lambda a: " ".join(a[1:]))
+def test_cli_runs_the_smc_baseline(argv):
+    """--do-smc at a tiny size: a finite row on the harvested particles,
+    log Z and the anneal's lambda; no importance weights behind the row."""
+    from mfm_tpu_torch import cli
+
+    (m,) = cli.main(argv + ["--do-smc"] + _TINY)
+    assert all(np.isfinite(m[k]) for k in ("logpdf", "stein_u", "logpdf_star", "log_z"))
+    assert 0.0 < m["lmbda"] <= 1.0 and m["is_ess"] is None and m["is_unique"] is None
+
+
+def test_cli_refuses_flow_smc_with_gradients_through_a_forward_only_gate():
+    """phi-four's fused score gate is forward only: latent MALA is refused
+    by name before the anneal's first transport."""
+    from mfm_tpu_torch import cli
+
+    with pytest.raises(ValueError, match="forward-only"):
+        cli.main(["--example", "phi-four", "--flow-smc", "2"] + _TINY)
+    with pytest.raises(SystemExit, match="--do-smc"):
+        cli.main(["--example", "4-mode", "--flow-smc", "2", "--do-smc"] + _TINY)
 
 
 def test_cli_has_no_unported_example():

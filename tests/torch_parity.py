@@ -58,3 +58,37 @@ def torch_field(params, freqs, dim=4, width=16, act="relu", score_fn=None, score
     state = params_from_flax(jax.tree_util.tree_map(np.asarray, params), np.asarray(freqs))
     net.load_state_dict(state)
     return net, field_params(net)
+
+
+def nuts_noise(key, B, d, depth, variant):
+    """``mfm_tpu_torch.kernels.nuts.NUTSNoise`` made of the draws the
+    reference's NUTS kernel takes from ``key`` (mfm_tpu/kernels/nuts.py):
+    static, :177,195-209 and each subtree's merge keys (:129) in pre-order;
+    iterative, :303,432 and one key_prop a leaf (:340)."""
+    from mfm_tpu_torch.kernels.nuts import NUTSNoise
+
+    def merges(k, depth):
+        if depth == 0:
+            return []
+        kl, kr, km = jax.random.split(k, 3)
+        return [jax.random.uniform(km, (B,))] + merges(kl, depth - 1) + merges(kr, depth - 1)
+
+    if variant == "static":
+        key_mom, key_tree = jax.random.split(key)
+        keys = jax.random.split(key_tree, 3 * depth)
+        dirs = [jax.random.uniform(keys[3 * j], (B,)) for j in range(depth)]
+        tree = [u for j in range(depth) for u in merges(keys[3 * j + 1], j)]
+        takes = [jax.random.uniform(keys[3 * j + 2], (B,)) for j in range(depth)]
+    else:
+        key_mom, k = jax.random.split(key)
+        dirs, tree, takes = [], [], []
+        for j in range(depth):
+            k, key_dir, key_sub, key_acc = jax.random.split(k, 4)
+            dirs.append(jax.random.uniform(key_dir, (B,)))
+            takes.append(jax.random.uniform(key_acc, (B,)))
+            for _ in range(1 << j):
+                key_sub, key_prop = jax.random.split(key_sub)
+                tree.append(jax.random.uniform(key_prop, (B,)))
+    stack = lambda us: tt(jnp.stack(us)) if us else torch.zeros((0, B))
+    return NUTSNoise(tt(jax.random.normal(key_mom, (B, d))), stack(dirs), stack(tree),
+                     stack(takes))
