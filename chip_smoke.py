@@ -74,7 +74,25 @@ own; any failure exits non-zero before the final line:
 21. pines as shipped, 120 iterations, then 4 flow-annealed SMC steps
    (--flow-smc 4) with latent MALA on 128 particles at d=1600 through the
    transport with its Rademacher probes (a forward and a reverse pass a
-   move).
+   move);
+22. the FAB baseline (--do-fab) on phi-four: batch 1024, d=64, 8 spline
+   coupling layers with 128x128 gelu conditioners (configs/fab/many_well.yaml
+   with the preset's hidden_xt), an HMC bridge of K=4 (every gradient of
+   log gamma an autograd pass through the flow and K3's analytic score), 12
+   epochs after 3 prefill passes;
+23. the flowMC baseline (--do-flowmc) on phi-four: 1024 chains, 10 rounds
+   of 10 MALA steps, 10 NLL epochs and 10 flow independence-MH moves;
+24. the DDS baseline (--do-dds) on phi-four: batch 1024, 100 checkpointed
+   steps of a 128-wide control net gated by the detached K3 score, 20
+   iterations (at the preset's learning rate its chain blows up within ten
+   iterations, in the reference too: a finite row far off the target);
+25. FAB on 4-mode, 20 epochs, 12,800 eval samples (K2a, K2b);
+26. pines as shipped, 120 iterations, then 100 self-tuning MALA moves on the
+   IS-resampled set (--move-correct 100);
+27. many-well, 120 iterations, the IS proposal mixed with 10 % N(0, 4 I)
+   (--defensive-alpha 0.9);
+28. 4-mode, 30 iterations, 1 flow-SMC step on 12,800 particles, then 50
+   MALA moves on the annealed ensemble (--flow-smc 1 --move-correct 50).
 
 The iteration counts are a small fraction of the presets' (the depth is cut
 so that the whole script stays well inside its time limit on a slow host);
@@ -757,7 +775,9 @@ def run_cli(argv, label):
     weights = ("no importance weights (SMC harvest)" if m["is_ess"] is None else
                f"IS ESS {m['is_ess']:.3f}, {m['is_unique']} distinct resampled points")
     extra = {k: m[k] for k in ("log_z", "lmbda", "step_size", "flow_smc_log_z",
-                               "flow_smc_lmbda", "flow_smc_ess_fraction", "flow_smc_time")
+                               "flow_smc_lmbda", "flow_smc_ess_fraction", "flow_smc_time",
+                               "log_z_is", "is_ess_frac", "final_loss", "mean_accept",
+                               "mean_global_accept", "log_z_alpha2", "defensive_n_flow")
              if k in m}
     print(f"[{label}] row {json.dumps(row)} metrics_kernel={m['metrics_kernel']} {weights}; "
           f"train_time {m['train_time']:.3f} s, {m['it_per_s']:.2f} it/s "
@@ -822,6 +842,20 @@ def main():
          (K2A, K2B)),
         (["--example", "pines", "--learning-iter", "120", "--flow-smc", "4"], "21 pines flow-SMC",
          (K2A,)),
+        (["--example", "phi-four", "--do-fab", "--learning-iter", "12"], "22 phi-four FAB",
+         (K3, K2A)),
+        (["--example", "phi-four", "--do-flowmc", "--learning-iter", "100"],
+         "23 phi-four flowMC", (K3, K2A)),
+        (["--example", "phi-four", "--do-dds", "--learning-iter", "20"], "24 phi-four DDS",
+         (K3, K2A)),
+        (["--example", "4-mode", "--do-fab", "--learning-iter", "20"], "25 4-mode FAB",
+         (K2A, K2B)),
+        (["--example", "pines", "--learning-iter", "120", "--move-correct", "100"],
+         "26 pines move correction", (K2A,)),
+        (["--example", "many-well", "--learning-iter", "120", "--defensive-alpha", "0.9"],
+         "27 many-well defensive", (K2A, K2B)),
+        ([*short, "--flow-smc", "1", "--move-correct", "50"], "28 4-mode flow-SMC and moves",
+         (K2A, K2B)),
     ]
     for argv, label, must in phases:
         before = [f.launches for f in counters]

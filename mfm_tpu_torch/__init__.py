@@ -13,15 +13,20 @@ reference every module here is tested against. The package keeps
 - ``smc``          adaptive tempered and waste-free SMC: resampling, ESS,
                    the root solvers
 - ``flows``        the CNF vector field, ODE transport, flow-matching loss,
-                   the hand-written AdamW, the flow kernels and the
-                   latent pullback target
+                   the hand-written AdamW and optax's Adam, global-norm
+                   clip and chain, the flow kernels, the latent pullback
+                   target, and the coupling flows (real-NVP, RQ spline)
 - ``ops``          the CUDA kernels (fused field apply, pairwise Stein/RBF
                    sums, phi^4 value and score), each with its plain
                    PyTorch version
 - ``diagnostics``  Stein discrepancy and MMD
 - ``drivers``      the MFM training loop, the SMC and flow-SMC drivers,
-                   final sampling and evaluation
-- ``utils``        flax -> torch parameter conversion
+                   the baselines FAB (``fab``, with its YAML config
+                   reader), flowMC (``flowmc``) and DDS (``dds``) behind
+                   ``baselines.run_baseline``, final sampling (IS, the MALA
+                   move correction, the defensive mixture) and evaluation
+- ``utils``        flax -> torch parameter conversion (vector fields,
+                   coupling flows, the Cox target's state)
 
 It imports ``torch`` and never ``jax``. Randomness is injected: every
 stochastic leaf function takes its noise as tensors, and the drivers draw

@@ -7,6 +7,9 @@
     python -m mfm_tpu_torch.cli --example phi-four --seed 0 --mcmc-kernel nuts
     python -m mfm_tpu_torch.cli --example phi-four --seed 0 --do-smc
     python -m mfm_tpu_torch.cli --example pines --seed 0 --flow-smc 4
+    python -m mfm_tpu_torch.cli --example phi-four --seed 0 --do-fab
+    python -m mfm_tpu_torch.cli --example pines --seed 0 --move-correct 100
+    python -m mfm_tpu_torch.cli --example many-well --seed 0 --defensive-alpha 0.9
 
 Each example runs its preset as ``mfm_tpu`` ships it (phi-four and pines:
 the bf16 field, ``field_precision='default'``; pines: the 'prior'
@@ -24,9 +27,15 @@ Trains, samples through the flow with the IS correction, evaluates, and
 prints the reference's metric row (logpdf / KSD-U / KSD-V / MMD / time; the
 second row is the IS-corrected set). ``--do-smc`` runs the adaptive tempered
 SMC baseline instead (both rows are its harvested particles);
+``--do-fab``, ``--do-flowmc``, ``--do-dds`` run those baselines instead
+(first row their sampler's draws, second row those draws IS-resampled);
 ``--flow-smc N`` replaces the IS correction by N flow-annealed SMC steps in
 the flow's latent space (the second row is that ensemble, resampled by its
-weights). With no ``--seed`` it replicates the
+weights); ``--move-correct N`` follows the IS correction (or the flow-SMC
+ensemble) with N self-tuning MALA moves on the target (the first row is
+then the IS-resampled set, the second the moved one); ``--defensive-alpha
+a`` draws 1 - a of the IS proposal from N(0, defensive_var I) (the first
+row is the flow's share). With no ``--seed`` it replicates the
 reference's seeds i**10, i < 10. The run needs the device it is given
 (default ``cuda``); it never falls back to another.
 """
@@ -49,9 +58,21 @@ from mfm_tpu_torch.drivers import (
     run_smc,
     sample_flow,
 )
-from mfm_tpu_torch.drivers.mfm import ess_of, make_generator
+from mfm_tpu_torch.drivers.baselines import BASELINES, run_baseline
+from mfm_tpu_torch.drivers.mfm import (
+    check_normalised,
+    defensive_split,
+    draw_move_noise,
+    ess_of,
+    make_generator,
+    mala_move_correct,
+    reference_of,
+    sample_flow_defensive,
+    sample_flow_move,
+)
 from mfm_tpu_torch.targets import (
     Funnel,
+    IndepGaussian,
     LogGaussianCoxPines,
     ManyWell,
     PhiFour,
@@ -73,8 +94,8 @@ EXAMPLES = {
 # flags of the reference CLI whose code paths are not ported yet, with the
 # reference's defaults (any other value is refused)
 NOT_PORTED_FLAGS = {
-    "do_fab": False, "do_flowmc": False, "do_dds": False,
-    "vmap_seeds": False, "move_correct": 0, "defensive_alpha": 1.0,
+    "vmap_seeds": False, "plots": False, "full_metrics": False, "run_dir": "runs",
+    "wandb": False,
 }
 
 
@@ -105,7 +126,8 @@ def _parse_set(items):
 
 
 def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
-            flow_smc: int = 0) -> dict:
+            flow_smc: int = 0, baseline: str = None, move_correct: int = 0,
+            defensive_alpha: float = 1.0, defensive_var: float = 4.0) -> dict:
     """One seed: train, sample, evaluate. Returns the metric row with
     ``train_time``, ``it_per_s``, and the ESS of the weights behind the
     ``*_star`` row and its number of distinct points (``is_ess``,
@@ -115,11 +137,18 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
 
     ``do_smc``: the SMC baseline instead of MFM, with its ``log_z`` and
     final ``lmbda``; its rows are its harvested particles, which carry no
-    importance weights (``is_ess`` and ``is_unique`` None). ``flow_smc`` N:
-    the star row is the flow-SMC ensemble after N steps, resampled by its
-    weights (``flow_smc_log_z``, ``flow_smc_lmbda``,
-    ``flow_smc_ess_fraction``). An MFM run that adapts its step size reports
-    the last one (``step_size``)."""
+    importance weights (``is_ess`` and ``is_unique`` None). ``baseline``
+    (fab, flowmc, dds): that baseline instead, its extras (``log_z_is``,
+    ``is_ess_frac``, and ``final_loss``, ``mean_accept``... as it has them)
+    in the row. ``flow_smc`` N: the star row is the flow-SMC ensemble after
+    N steps, resampled by its weights (``flow_smc_log_z``,
+    ``flow_smc_lmbda``, ``flow_smc_ess_fraction``). ``move_correct`` N: N
+    MALA moves after the IS correction (or after flow-SMC); the first row is
+    then the IS-resampled set (or the raw flow draws under flow-SMC), the
+    star row the moved set. ``defensive_alpha`` < 1: the IS proposal mixes
+    in N(0, defensive_var I); the first row is the flow's share of the
+    draws. An MFM run that adapts its step size reports the last one
+    (``step_size``)."""
     n_eval = cfg.eval_iter * cfg.num_chain
     real_samples = None
     if target.can_sample:
@@ -132,11 +161,31 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
         extra = {"log_z": float(result.log_z), "lmbda": float(result.lmbda),
                  "is_ess": None, "is_unique": None}
         log.info(f"SMC log_z={extra['log_z']:.6g} lmbda={extra['lmbda']:.6g}")
+    elif baseline is not None:
+        result = run_baseline(baseline, target, cfg, seed=cfg.seed, n_eval=n_eval, device=device)
+        flow_samples, exact_samples = result.flow_samples, result.exact_samples
+        train_time = result.train_time
+        extra = {k: v for k, v in result.extras.items() if isinstance(v, float)}
+        extra["is_ess"] = extra["is_ess_frac"] * n_eval
+        extra["is_unique"] = int(torch.unique(exact_samples, dim=0).shape[0])
+        log.info(" ".join(f"{k}={v:.6g}" for k, v in extra.items()))
     else:
         run = run_mfm(target, cfg, device, logger=_ChunkLogger())
         train_time = run.train_time
         gen = make_generator(device, cfg.seed, 999)
-        flow_samples, exact_samples, log_w = sample_flow(run, n_eval, target, gen)
+        if defensive_alpha < 1.0:
+            n_flow, _ = defensive_split(n_eval, defensive_alpha)
+            mixture, exact_samples, log_w = sample_flow_defensive(
+                run, n_eval, target, IndepGaussian(cfg.dim, var=defensive_var),
+                defensive_alpha, gen)
+            flow_samples = mixture[:n_flow]  # the flow's draws, not the mixture's
+            extra["defensive_n_flow"] = n_flow
+        elif move_correct and not flow_smc:
+            moved, flow_samples, log_w = sample_flow_move(
+                run, n_eval, target, gen, n_moves=move_correct, init_step=cfg.step_size)
+            exact_samples = moved
+        else:
+            flow_samples, exact_samples, log_w = sample_flow(run, n_eval, target, gen)
         is_ess = ess_of(log_w)
         if flow_smc:
             r = run_flow_smc(
@@ -150,6 +199,10 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
                      "flow_smc_ess_fraction": float(r.ess_fraction),
                      "flow_smc_time": r.train_time}
             log.info(" ".join(f"{k}={v:.6g}" for k, v in extra.items()))
+            if move_correct:  # the annealed ensemble seeds the move kernel
+                noises = draw_move_noise(gen, move_correct, n_eval, cfg.dim)
+                exact_samples = mala_move_correct(exact_samples, target, noises,
+                                                  init_step=cfg.step_size)
         extra["is_ess"] = float(is_ess)
         extra["is_unique"] = int(torch.unique(exact_samples, dim=0).shape[0])
         if "step_size" in run.metrics:
@@ -163,6 +216,36 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
     metrics["train_time"] = train_time
     metrics["it_per_s"] = cfg.learning_iter / train_time
     return metrics
+
+
+def _check_flags(args) -> None:
+    """The reference's conflict guards (``mfm_tpu/cli.py:334-354``) and the
+    port's own: ``--defensive-alpha`` below 1 is refused wherever the
+    reference would ignore it."""
+    # `!=` against each flag's own default: `True in (False, 0, 1.0)` holds
+    given = [f for f, default in NOT_PORTED_FLAGS.items() if getattr(args, f) != default]
+    if given:
+        flags = ", ".join("--" + f.replace("_", "-") for f in given)
+        raise SystemExit(f"{flags}: not ported yet")
+    non_mfm = [f"--{f.replace('_', '-')}" for f in ("do_smc", "do_fab", "do_flowmc", "do_dds")
+               if getattr(args, f)]
+    if args.move_correct and non_mfm:
+        raise SystemExit(
+            f"--move-correct applies only to the MFM run (the * columns of {non_mfm[0]} are "
+            "not move-corrected); drop one of the conflicting flags")
+    if args.flow_smc and non_mfm:
+        raise SystemExit(
+            "--flow-smc applies only to the MFM run and replaces its final correction; drop "
+            f"{non_mfm[0]} or --flow-smc (it does compose with --move-correct)")
+    if not 0.0 < args.defensive_alpha <= 1.0:
+        raise SystemExit(f"--defensive-alpha must be in (0, 1], got {args.defensive_alpha}")
+    if args.defensive_alpha < 1.0:
+        other = non_mfm + [f for f, on in (("--flow-smc", args.flow_smc),
+                                           ("--move-correct", args.move_correct)) if on]
+        if other:
+            raise SystemExit(
+                f"--defensive-alpha applies only to the plain IS correction of the MFM run; "
+                f"it would be ignored with {', '.join(other)}")
 
 
 def main(argv=None):
@@ -201,6 +284,17 @@ def main(argv=None):
     p.add_argument("--flow-smc", type=int, default=0, metavar="N",
                    help="replace the final IS correction with N flow-annealed SMC "
                         "steps in the flow's latent space")
+    for name in BASELINES:
+        p.add_argument(f"--do-{name}", action="store_true",
+                       help=f"run the {name} baseline instead of MFM")
+    p.add_argument("--move-correct", type=int, default=0, metavar="N",
+                   help="after the IS correction (or --flow-smc), N self-tuning MALA "
+                        "moves on the target")
+    p.add_argument("--defensive-alpha", type=float, default=1.0,
+                   help="final IS proposal a*q_flow + (1-a)*N(0, defensive_var I); "
+                        "1.0 (default) is the flow alone")
+    p.add_argument("--defensive-var", type=float, default=4.0,
+                   help="variance of the defensive component")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any MFMConfig field (repeatable)")
     for flag, default in NOT_PORTED_FLAGS.items():
@@ -210,15 +304,7 @@ def main(argv=None):
         else:
             p.add_argument(name, type=type(default), default=default, help="not ported yet")
     args = p.parse_args(argv)
-
-    # `!=` against each flag's own default: `True in (False, 0, 1.0)` holds
-    given = [f for f, default in NOT_PORTED_FLAGS.items() if getattr(args, f) != default]
-    if given:
-        flags = ", ".join("--" + f.replace("_", "-") for f in given)
-        raise SystemExit(f"{flags}: not ported yet (the port runs the plain MFM path)")
-    if args.flow_smc and args.do_smc:
-        raise SystemExit("--flow-smc applies only to the MFM run and replaces its final "
-                         "correction; drop --do-smc or --flow-smc")
+    _check_flags(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
@@ -242,13 +328,23 @@ def main(argv=None):
     overrides.update(_parse_set(args.set))
     cfg = preset(args.example, **overrides)
     target = EXAMPLES[args.example](device=device)
+    if args.defensive_alpha < 1.0:  # refused before training, not after
+        try:
+            check_normalised(reference_of(target, cfg, device))
+            defensive_split(cfg.eval_iter * cfg.num_chain, args.defensive_alpha)
+        except ValueError as e:
+            raise SystemExit(f"--defensive-alpha: {e}") from None
+    # the reference's precedence: SMC, then fab, flowmc, dds
+    baseline = next((n for n in BASELINES if getattr(args, f"do_{n}")), None)
 
     seeds = [args.seed] if args.seed is not None else [i**10 for i in range(10)]
     results = []
     for seed in seeds:
         cfg.seed = seed
-        results.append(run_one(target, cfg, device, check=args.check, do_smc=args.do_smc,
-                               flow_smc=args.flow_smc))
+        results.append(run_one(
+            target, cfg, device, check=args.check, do_smc=args.do_smc, flow_smc=args.flow_smc,
+            baseline=None if args.do_smc else baseline, move_correct=args.move_correct,
+            defensive_alpha=args.defensive_alpha, defensive_var=args.defensive_var))
 
     cols = ("logpdf", "stein_u", "stein_v", "mmd", "train_time")
     rows = np.asarray([[m[c] for c in cols] for m in results])

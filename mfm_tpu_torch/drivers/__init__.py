@@ -1,4 +1,4 @@
-from mfm_tpu_torch.drivers.baselines import is_resample
+from mfm_tpu_torch.drivers.baselines import BaselineResult, is_resample, run_baseline
 from mfm_tpu_torch.drivers.eval import (
     aggregate_seeds,
     check_floor,
@@ -9,15 +9,21 @@ from mfm_tpu_torch.drivers.flow_smc import FlowSMCResult, run_flow_smc
 from mfm_tpu_torch.drivers.mfm import (
     MFMRun,
     build_mfm,
+    mala_move_correct,
     next_beta,
     run_mfm,
     sample_flow,
+    sample_flow_defensive,
+    sample_flow_defensive_parts,
+    sample_flow_move,
     sample_flow_parts,
 )
 from mfm_tpu_torch.drivers.smc_run import SMCRunResult, run_smc
 
 __all__ = [
+    "BaselineResult",
     "is_resample",
+    "run_baseline",
     "evaluate_samples",
     "check_floor",
     "report_row",
@@ -26,7 +32,11 @@ __all__ = [
     "build_mfm",
     "next_beta",
     "run_mfm",
+    "mala_move_correct",
     "sample_flow",
+    "sample_flow_defensive",
+    "sample_flow_defensive_parts",
+    "sample_flow_move",
     "sample_flow_parts",
     "FlowSMCResult",
     "run_flow_smc",

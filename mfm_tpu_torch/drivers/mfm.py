@@ -24,11 +24,16 @@ kernel's noise tuple or the flow kernel's, and ``FMNoise``) and
 ``draw_step_noise`` draws it from a ``torch.Generator``. Parameters are a ``{name: tensor}``
 dict carried in the state, as the reference carries its flax tree.
 
+After training, ``sample_flow_move`` adds self-tuning MALA moves to the
+IS-resampled set, and ``sample_flow_defensive`` draws through a defensive
+mixture with a wide Gaussian.
+
 Not ported yet: meshes and checkpoints.
 """
 
+import math
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 from torch.func import functional_call, grad_and_value
@@ -64,7 +69,7 @@ from mfm_tpu_torch.flows.flow_mh import CisNoise, IndepNoise, RwmNoise  # noqa: 
 from mfm_tpu_torch.flows.train import TrainState
 from mfm_tpu_torch.flows.vector_field import PRECISIONS
 from mfm_tpu_torch.kernels import ChainState, mala
-from mfm_tpu_torch.kernels.mala import MalaNoise  # noqa: F401  (re-exported)
+from mfm_tpu_torch.kernels.mala import MalaNoise
 from mfm_tpu_torch.ops.field import ACTIVATIONS, check_fits, field_layout
 from mfm_tpu_torch.smc.solvers import bisection
 from mfm_tpu_torch.targets import make_ref_dist
@@ -165,6 +170,14 @@ def _check_ported(cfg) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
+def reference_of(target: Target, cfg, device) -> Target:
+    """The flow's reference distribution ``cfg.ref_dist`` (``prior``: the
+    target's own prior; raises if it has no sampler)."""
+    if cfg.ref_dist == "prior":
+        return PriorReference(target)
+    return make_ref_dist(cfg.ref_dist, cfg.dim, device)
+
+
 def build_mfm(
     target: Target, cfg, device, init_generator: torch.Generator
 ) -> MFMPieces:
@@ -209,10 +222,7 @@ def build_mfm(
     transport = make_transport(
         bind, divergence=cfg.divergence, n_steps=cfg.ode_steps, method=cfg.ode_method
     )
-    if cfg.ref_dist == "prior":  # the target's own prior; raises if it has no sampler
-        ref_dist = PriorReference(target)
-    else:
-        ref_dist = make_ref_dist(cfg.ref_dist, d, device)
+    ref_dist = reference_of(target, cfg, device)
     lr_fn = make_lr_schedule(cfg.learning_iter, cfg.warmup_steps, cfg.learning_rate)
     tx = adamw_finite(
         lr_fn, weight_decay=cfg.weight_decay, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
@@ -456,4 +466,127 @@ def sample_flow(run: MFMRun, n_samples: int, target: Target, generator: torch.Ge
     return sample_flow_parts(
         run.transport, run.train.params, run.ref_dist, target, u, probe,
         generator=generator,
+    )
+
+
+def mala_move_correct(
+    positions: torch.Tensor,
+    target: Target,
+    noises: Sequence[MalaNoise],
+    init_step: float = 0.01,
+    target_acceptance: float = 0.574,
+) -> torch.Tensor:
+    """Self-tuning MALA move correction of an approximate sample set, one
+    move a noise: the first half adapts the step by dual averaging on the
+    mean acceptance (a NaN acceptance counts as 0), the second half runs at
+    the frozen averaged step exp(log_step_avg), so the kernel that produces
+    the returned positions is exactly target-invariant."""
+    vs = target.value_and_score
+    kernel = mala.build_kernel(vs)
+    n_warm = len(noises) // 2
+    state = mala.init(positions, vs)
+    da = da_init(init_step, positions.device)
+    for noise in noises[:n_warm]:
+        state, info = kernel(state, torch.exp(da.log_step), *noise)
+        acc = torch.nan_to_num(torch.mean(info.acceptance_rate), nan=0.0)
+        da = da_update(da, acc, target_acceptance)
+    frozen = torch.exp(da.log_step_avg)
+    for noise in noises[n_warm:]:
+        state, _ = kernel(state, frozen, *noise)
+    return state.position
+
+
+def draw_move_noise(gen: torch.Generator, n_moves: int, B: int, d: int) -> List[MalaNoise]:
+    return [mala.draw_noise(gen, B, d) for _ in range(n_moves)]
+
+
+def sample_flow_move(
+    run: MFMRun, n_samples: int, target: Target, generator: torch.Generator,
+    n_moves: int = 100, init_step: float = 0.01, target_acceptance: float = 0.574,
+):
+    """IS-resampled flow draws, then ``n_moves`` self-tuning MALA moves on
+    the exact target (``mala_move_correct``): the moves restore the
+    diversity the resampling loses at high d. Returns (moved,
+    IS-resampled, log-weights)."""
+    _, exact, log_w = sample_flow(run, n_samples, target, generator)
+    noises = draw_move_noise(generator, n_moves, n_samples, exact.shape[-1])
+    moved = mala_move_correct(exact, target, noises, init_step, target_acceptance)
+    return moved, exact, log_w
+
+
+def defensive_split(n_samples: int, alpha: float):
+    """(n_flow, n_def): round((1 - alpha) n) draws from the defensive
+    component, the rest through the flow. Refuses an alpha outside (0, 1]
+    and one that leaves no flow draw (the reference would run the flow on an
+    empty batch and take log 0)."""
+    if not 0.0 < alpha <= 1.0:
+        raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+    n_def = int(round((1.0 - alpha) * n_samples))
+    if n_samples - n_def < 1:
+        raise ValueError(
+            f"defensive alpha={alpha} leaves no flow draw of {n_samples} (n_flow < 1)")
+    return n_samples - n_def, n_def
+
+
+def check_normalised(ref_dist: Target) -> None:
+    """The defensive mixture adds the flow's density to a normalised
+    Gaussian's, so the flow's must be normalised too: its reference's
+    ``log_prob`` must be a normalised density (``Target.normalised``)."""
+    if not ref_dist.normalised:
+        raise ValueError(
+            f"the defensive mixture needs a normalised flow reference; "
+            f"{type(ref_dist).__name__}.log_prob is not (flat, or a prior not declared "
+            f"normalised): choose another ref_dist or drop --defensive-alpha")
+
+
+def sample_flow_defensive_parts(
+    transport, params, ref_dist: Target, target: Target, u: torch.Tensor,
+    x_def: torch.Tensor, defensive_dist: Target, probe: Optional[torch.Tensor] = None,
+    probe_def: Optional[torch.Tensor] = None, gumbel: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """IS through the defensive mixture q = a q_flow + (1 - a) q_def: the
+    reference draws ``u`` (n_flow) go through the flow, ``x_def`` (n_def)
+    are draws of ``defensive_dist`` (a normalised Gaussian), whose flow
+    density one ``transport.inverse`` gives; a is the realised fraction
+    n_flow / n. Returns (mixture samples, flow draws first; resampled;
+    log-weights)."""
+    from mfm_tpu_torch.drivers.baselines import is_resample
+
+    check_normalised(ref_dist)
+    n_flow, n_def = u.shape[0], x_def.shape[0]
+    if n_flow < 1:
+        raise ValueError("the defensive mixture needs at least one flow draw (n_flow < 1)")
+    x_f, logdet_f = transport.forward(params, u, probe)
+    log_qf_f = ref_dist.log_prob(u) - logdet_f
+    u_d, logdet_d = transport.inverse(params, x_def, probe_def)
+    log_qf_d = ref_dist.log_prob(u_d) - logdet_d
+    x = torch.cat([x_f, x_def], dim=0)
+    log_qf = torch.cat([log_qf_f, log_qf_d], dim=0)
+    log_qd = defensive_dist.log_prob(x)
+    a_real = n_flow / (n_flow + n_def)  # the realised fraction, not the nominal alpha
+    log_qmix = torch.logaddexp(math.log(a_real) + log_qf, math.log1p(-a_real) + log_qd)
+    exact, log_w = is_resample(x, target.log_prob(x), log_qmix, gumbel=gumbel,
+                               generator=generator)
+    return x, exact, log_w
+
+
+def sample_flow_defensive(
+    run: MFMRun, n_samples: int, target: Target, defensive_dist: Target, alpha: float,
+    generator: torch.Generator,
+):
+    """``sample_flow_defensive_parts`` with the split of ``defensive_split``
+    and draws from ``generator``; alpha == 1 (no defensive draw) is
+    ``sample_flow``."""
+    n_flow, n_def = defensive_split(n_samples, alpha)
+    if n_def == 0:
+        return sample_flow(run, n_samples, target, generator)
+    d = run.ref_dist.dim
+    u = run.ref_dist.sample(generator, (n_flow,))
+    probe = draw_probe(run.transport, generator, n_flow, d)
+    x_def = defensive_dist.sample(generator, (n_def,))
+    probe_def = draw_probe(run.transport, generator, n_def, d)
+    return sample_flow_defensive_parts(
+        run.transport, run.train.params, run.ref_dist, target, u, x_def, defensive_dist,
+        probe, probe_def, generator=generator,
     )

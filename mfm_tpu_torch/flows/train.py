@@ -1,4 +1,5 @@
-"""The flow's optimizer (counterpart of ``mfm_tpu.flows.train``).
+"""The flow's optimizers (counterpart of ``mfm_tpu.flows.train``, and of
+the optax transformations the baselines use).
 
 ``adamw_finite`` is written by hand because ``torch.optim.AdamW`` is a
 different update. Semantically it is optax's
@@ -10,6 +11,12 @@ different update. Semantically it is optax's
 - a non-finite gradient leaves parameters and moments untouched and bumps
   a consecutive-failure counter; after ``nonfinite_patience`` failures in a
   row the NaN is let through so the blow-up surfaces.
+
+``adam``, ``clip_by_global_norm`` and ``chain`` are optax's, as FAB,
+flowMC and DDS use them: Adam is ``mu_hat / (sqrt(nu_hat) + eps)`` with the
+schedule read at the pre-increment count; a zeroed gradient (a step the
+caller skipped) is still an update, so the moments decay and the count
+advances, as in the reference.
 
 Everything is tensor arithmetic (no host round trip); parameters are a
 ``{name: tensor}`` dict and every update returns new tensors.
@@ -137,5 +144,72 @@ def create_train_state(params: dict, tx: GradientTransformation) -> TrainState:
 
 def apply_gradients(state: TrainState, grads: dict, tx: GradientTransformation) -> TrainState:
     updates, opt_state = tx.update(grads, state.opt_state, state.params)
-    params = {k: p + updates[k] for k, p in state.params.items()}
-    return TrainState(state.step + 1, params, opt_state)
+    return TrainState(state.step + 1, apply_updates(state.params, updates), opt_state)
+
+
+class AdamState(NamedTuple):
+    count: torch.Tensor  # int32 scalar: updates so far
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry (``optax.global_norm``)."""
+    return torch.sqrt(sum(torch.sum(g * g) for g in tree.values()))
+
+
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+         ) -> GradientTransformation:
+    """``optax.adam``: ``learning_rate`` a number or a schedule of the
+    update count."""
+
+    def init_fn(params):
+        dev = next(iter(params.values())).device
+        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
+        return AdamState(torch.zeros((), dtype=torch.int32, device=dev), zeros(), zeros())
+
+    def update_fn(grads, state: AdamState, params=None):
+        count = state.count + 1
+        cf = count.to(torch.float32)
+        bc1, bc2 = 1.0 - b1**cf, 1.0 - b2**cf
+        lr = learning_rate(state.count) if callable(learning_rate) else learning_rate
+        mu, nu, updates = {}, {}, {}
+        for k, g in grads.items():
+            mu[k] = (1.0 - b1) * g + b1 * state.mu[k]
+            nu[k] = (1.0 - b2) * (g * g) + b2 * state.nu[k]
+            updates[k] = -lr * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps))
+        return updates, AdamState(count, mu, nu)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """``optax.clip_by_global_norm``: scale every update by max_norm / norm
+    when the global norm reaches max_norm."""
+
+    def update_fn(grads, state, params=None):
+        norm = global_norm(grads)
+        keep = norm < max_norm
+        return {k: torch.where(keep, g, (g / norm) * max_norm) for k, g in grads.items()}, state
+
+    return GradientTransformation(lambda params: (), update_fn)
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """``optax.chain``: the transformations in order, one state each."""
+
+    def init_fn(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update_fn(grads, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new_state.append(s)
+        return grads, tuple(new_state)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def apply_updates(params: dict, updates: dict) -> dict:
+    return {k: p + updates[k] for k, p in params.items()}

@@ -144,21 +144,21 @@ class VectorFieldNet(nn.Module):
             h = self.act(layer(h))
         return self.field_head(h), gate
 
-    def clipped_score(self, x: torch.Tensor) -> torch.Tensor:
-        score = self.score_fn(x)
-        if self.score_clip is not None:
-            score = torch.clamp(score, -self.score_clip, self.score_clip)
-        return score
-
-    def forward(self, x: torch.Tensor, t) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t, score: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The field at (x, t). ``score``, when given, is ``score_fn(x)``
+        computed by the caller (DDS takes it outside its checkpointed step);
+        it is clipped here all the same."""
         single = x.ndim == 1
         if single:
             x = x[None, :]
         t = torch.as_tensor(t, dtype=x.dtype, device=x.device).reshape(-1)
         t = t.expand(x.shape[0])
         field, gate = self.mlp(x, t)
-        if self.score_fn is not None:
-            field = field + gate * self.clipped_score(x)
+        if score is not None or self.score_fn is not None:
+            score = self.score_fn(x) if score is None else score.reshape(x.shape)
+            if self.score_clip is not None:
+                score = torch.clamp(score, -self.score_clip, self.score_clip)
+            field = field + gate * score
         return field[0] if single else field
 
 

@@ -62,6 +62,9 @@ class Target:
     # False where ``score_gate`` is a forward-only kernel: a transport through
     # it cannot be differentiated in u (``flows/pullback.py`` refuses it)
     score_gate_differentiable = True
+    # True where ``log_prob`` is a normalised density (a flow reference in a
+    # defensive mixture must be); unknown, so False, unless a class says so
+    normalised = False
 
     def log_lik(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -176,6 +179,12 @@ class PriorReference(Target):
             )
         self.dim = target.dim
         self._target = target
+
+    @property
+    def normalised(self) -> bool:
+        """Whether the wrapped target's ``log_prior`` carries its normaliser
+        (its ``log_prior_normalised``, False if it does not say)."""
+        return bool(getattr(self._target, "log_prior_normalised", False))
 
     @property
     def gaussian_mean(self):

@@ -80,7 +80,13 @@ class LogGaussianCoxPines(Target):
     whitens f through the Gram Cholesky factor. ``whitened=True``
     parameterises by white noise e with an N(0, I) prior and pushes e
     through the Cholesky factor inside the likelihood.
+
+    Either way ``log_prior`` is the Gaussian prior with its log-normaliser
+    (``_white_log_norm``, ``_latent_log_norm``), so the 'prior' flow
+    reference made of it is a normalised density.
     """
+
+    log_prior_normalised = True
 
     def __init__(
         self,

@@ -16,6 +16,8 @@ _LOG2PI = math.log(2.0 * math.pi)
 class IndepGaussian(Target):
     """Isotropic Gaussian N(mean, var * I); also the 'stdgauss' reference."""
 
+    normalised = True
+
     def __init__(self, dim: int, mean: float = 0.0, var: float = 1.0):
         self.dim = dim
         self.mean = float(mean)
@@ -58,6 +60,10 @@ class GaussianMixture(Target):
         self.chol_covs = torch.sqrt(self.covs)
         self.log_weights = torch.log(self.weights)
         self._log_norm = -0.5 * torch.sum(_LOG2PI + torch.log(self.covs), dim=-1)
+
+    @property
+    def normalised(self) -> bool:
+        return abs(float(self.weights.sum()) - 1.0) < 1e-6
 
     @property
     def n_modes(self) -> int:

@@ -195,7 +195,10 @@ class PhiFourBase(Target):
     reference distribution. The precision, its log-determinant and the
     covariance's Cholesky factor are built once in float64 on the host;
     the density and the sampler are fp32 products on ``device`` (TF32 off,
-    see ``drivers.mfm.set_field_precision``)."""
+    see ``drivers.mfm.set_field_precision``). ``log_prob`` carries the
+    precision's log-determinant: a normalised Gaussian density."""
+
+    normalised = True
 
     def __init__(
         self,

@@ -3,8 +3,11 @@
 Conversion is one way, reference -> port; everything crosses as numpy (this
 module imports nothing of the reference). Parameters: flax -> torch. The tree names are those of
 ``VectorFieldNet`` (and of ``field_pallas.split_params``): ``t_trunk`` /
-``x_trunk`` / ``xt_trunk`` ``Dense_i``, ``gate_head``, ``field_head``. A
-flax ``Dense`` kernel is (in, out); ``nn.Linear.weight`` is (out, in).
+``x_trunk`` / ``xt_trunk`` ``Dense_i``, ``gate_head``, ``field_head``; a
+DDS control net is the same tree with no ``t_trunk`` or ``x_trunk``. A
+``CouplingStack`` tree is ``conditioners_i`` / ``Dense_j`` (the last one the
+output head) and, with act-norm, ``an_scale`` / ``an_shift``. A flax
+``Dense`` kernel is (in, out); ``nn.Linear.weight`` is (out, in).
 """
 
 import numpy as np
@@ -32,6 +35,29 @@ def params_from_flax(tree, fourier_freqs=None) -> dict:
         out[f"{name}.bias"] = torch.tensor(b)
     if fourier_freqs is not None:
         out["fourier_freqs"] = torch.tensor(np.asarray(fourier_freqs))
+    return out
+
+
+def coupling_params_from_flax(tree) -> dict:
+    """The port's ``CouplingStack`` state from a flax ``CouplingStack``
+    tree (with or without the top-level ``params`` key). The output head's
+    ``dim * n_out`` columns keep flax's order (dimension-major), which is
+    the order the port's conditioner reshapes them in."""
+    p = tree["params"] if "params" in tree else tree
+    out = {}
+    i = 0
+    while f"conditioners_{i}" in p:
+        cond = p[f"conditioners_{i}"]
+        n = len(cond)
+        for j in range(n):
+            name = f"conditioners.{i}." + (f"hidden.{j}" if j < n - 1 else "head")
+            dense = cond[f"Dense_{j}"]
+            out[f"{name}.weight"] = torch.tensor(np.ascontiguousarray(np.asarray(dense["kernel"]).T))
+            out[f"{name}.bias"] = torch.tensor(np.asarray(dense["bias"]))
+        i += 1
+    for name in ("an_scale", "an_shift"):
+        if name in p:
+            out[name] = torch.tensor(np.asarray(p[name]))
     return out
 
 

@@ -658,3 +658,112 @@ def test_pullback_gradient_on_pines_matches_central_differences(cuda):
               - latent.tempered_log_prob(u - h * v, beta)) / (2 * h)
         dd = torch.sum(score * v, -1)
         assert float((fd - dd).abs().max()) <= 1e-2 * float(dd.abs().max()), i
+
+
+def _coupling(dev, dim=8, transform_type="spline", act_norm=True, seed=0):
+    """A coupling flow with every parameter perturbed (the zero heads would
+    make it the identity), on ``dev``."""
+    from mfm_tpu_torch.flows.coupling import make_coupling_flow
+
+    gen = torch.Generator().manual_seed(seed)
+    flow, params = make_coupling_flow(dim, 4, (32, 32), transform_type, 8, (-5.0, 5.0),
+                                      act_norm, 1.5, generator=gen, device=dev)
+    params = {k: v + 0.1 * torch.randn(v.shape, generator=gen).to(dev)
+              for k, v in params.items()}
+    return flow, params
+
+
+@pytest.mark.parametrize("transform_type", ["spline", "real_nvp"])
+def test_coupling_flow_on_the_card_matches_the_cpu(cuda, transform_type):
+    """The same flow and inputs on the card and on the CPU: fp32 GEMMs with
+    TF32 off in another order, 1e-5 relative to the largest entry."""
+    from mfm_tpu_torch.drivers.mfm import set_field_precision
+
+    set_field_precision("highest")
+    flow_g, params_g = _coupling(cuda, transform_type=transform_type)
+    flow_c, _ = _coupling("cpu", transform_type=transform_type)
+    params_c = {k: v.cpu() for k, v in params_g.items()}
+    gen = torch.Generator().manual_seed(1)
+    x = 2.0 * torch.randn(256, 8, generator=gen)
+    for name in ("forward", "inverse"):
+        got, ref = getattr(flow_g, name)(params_g, x.to(cuda)), getattr(flow_c, name)(params_c, x)
+        assert _rel_err(got[0].cpu(), ref[0]) <= 1e-5 and _rel_err(got[1].cpu(), ref[1]) <= 1e-5
+    assert _rel_err(flow_g.log_prob(params_g, x.to(cuda)).cpu(),
+                    flow_c.log_prob(params_c, x)) <= 1e-5
+
+
+def _fab_pair(cuda, target_g, target_c, example, **kw):
+    from mfm_tpu_torch.drivers import fab
+
+    kw = {"n_epoch": 3, "batch_size": 64,
+          "overrides": {"flow": {"conditioner_mlp_units": [32], "n_layers": 2}}, **kw}
+    return (fab.build_fab(target_g, example, device=cuda, **kw),
+            fab.build_fab(target_c, example, device="cpu", **kw))
+
+
+def test_fab_iteration_on_the_card_matches_the_cpu(cuda):
+    """One prefill pass and one FAB epoch with the 4-mode config, from the
+    same parameters and noise, card against CPU: 1e-4. The flow starts at
+    its identity (zero heads; the first gradient steps move them) and the
+    target is a Gaussian: an AIS pass through a perturbed spline flow on
+    4-mode is chaotic on one device already (a 3e-7 relative change of the
+    parameters moves 17 of 64 log-weights by up to 0.08 on the CPU: the
+    gradient of a spline's log-det jumps at its knots, and 4-mode's score
+    flips across mode boundaries). The buffer's rows are forced (a "Gumbel"
+    of 1e6 at chosen filled slots), as an ulp can flip an argmax over 2,752
+    slots between near-equal priorities."""
+    from mfm_tpu_torch.drivers import fab
+    from mfm_tpu_torch.drivers.mfm import set_field_precision
+    from mfm_tpu_torch.targets import IndepGaussian
+
+    set_field_precision("highest")
+    target_c = IndepGaussian(2, mean=1.0, var=9.0)
+    pg, pc = _fab_pair(cuda, target_c, target_c, "4-mode")
+    gen = torch.Generator().manual_seed(2)
+    carry_c = pc.init_carry(pc.params)
+    carry_g = pg.init_carry({k: v.to(cuda) for k, v in pc.params.items()})
+    ais = pc.draw_ais_noise(gen)
+    carry_c = pc.prefill_one(carry_c, ais)
+    carry_g = pg.prefill_one(carry_g, fab.AISNoise(*(v.to(cuda) for v in ais)))
+    for name in ("buf_x", "buf_log_w", "buf_log_q", "step_sizes"):
+        got, ref = getattr(carry_g, name)[:64].cpu(), getattr(carry_c, name)[:64]
+        assert _rel_err(got, ref) <= 1e-4, (name, _rel_err(got, ref))
+    it = pc.draw_iter_noise(gen)
+    gumbels = []
+    for _ in it.buffer:
+        forced = torch.zeros(64, pc.cap)
+        forced[torch.arange(64), torch.randint(0, 128, (64,), generator=gen)] = 1e6
+        gumbels.append(forced)
+    carry_c, out_c = pc.train_iter(carry_c, fab.FABIterNoise(it.ais, gumbels))
+    carry_g, out_g = pg.train_iter(carry_g, fab.FABIterNoise(
+        fab.AISNoise(*(v.to(cuda) for v in it.ais)), [g.to(cuda) for g in gumbels]))
+    for name, a, b in zip(("loss", "acc", "log_z"), out_g, out_c):
+        assert abs(float(a) - float(b)) <= 1e-4 * max(1.0, abs(float(b))), (name, a, b)
+    pts = 6.0 * torch.randn(256, 2, generator=gen)
+    assert _rel_err(pg.flow.log_prob(carry_g.params, pts.to(cuda)).cpu(),
+                    pc.flow.log_prob(carry_c.params, pts)) <= 1e-4
+    assert float(carry_c.params["conditioners.0.head.weight"].abs().max()) > 0  # it trained
+
+
+def test_fab_hmc_gradient_on_phi_four_launches_k3(cuda):
+    """FAB's HMC transition on phi-four (d=64): every gradient of log gamma
+    runs autograd through the flow and K3's analytic score (a value launch
+    and a score launch), n_inner + 1 = 6 gradients; against the CPU's plain
+    version: 1e-4."""
+    from mfm_tpu_torch.drivers.mfm import set_field_precision
+
+    set_field_precision("highest")
+    pg, pc = _fab_pair(cuda, PhiFour(64, device=cuda), PhiFour(64), "phi-four")
+    gen = torch.Generator().manual_seed(3)
+    params = {k: v + 0.02 * torch.randn(v.shape, generator=gen) for k, v in pc.params.items()}
+    x = 2.0 * torch.rand(64, 64, generator=gen) - 1.0
+    moves, u = torch.randn(1, 64, 64, generator=gen), torch.rand(1, 64, generator=gen)
+    beta, step = torch.tensor(0.5), torch.tensor(3e-3)
+    before = phi_four.phi_four_value_and_score.launches
+    xg, acc_g = pg.transition({k: v.to(cuda) for k, v in params.items()}, beta.to(cuda),
+                              step.to(cuda), x.to(cuda), moves.to(cuda), u.to(cuda))
+    torch.cuda.synchronize()
+    assert phi_four.phi_four_value_and_score.launches - before >= 2 * 6
+    xc, acc_c = pc.transition(params, beta, step, x, moves, u)
+    assert _rel_err(xg.cpu(), xc) <= 1e-4 and abs(float(acc_g) - float(acc_c)) <= 1e-6
+    assert 0.0 < float(acc_c)

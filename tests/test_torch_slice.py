@@ -362,7 +362,9 @@ def test_slice_with_trajectory_kernel_and_adaptation(kernel):
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, mfm_tpu_torch, mfm_tpu_torch.cli, mfm_tpu_torch.drivers; "
+        "import sys, mfm_tpu_torch, mfm_tpu_torch.cli, mfm_tpu_torch.drivers, "
+        "mfm_tpu_torch.drivers.fab, mfm_tpu_torch.drivers.flowmc, mfm_tpu_torch.drivers.dds, "
+        "mfm_tpu_torch.flows.coupling; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'mfm_tpu.'))"
         " or m == 'mfm_tpu']; assert not bad, bad"
     )
@@ -370,10 +372,14 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--example", "pines", "--do-fab"], "not ported"),
-    (["--example", "4-mode", "--defensive-alpha", "0.5"], "not ported"),
-    (["--example", "4-mode", "--move-correct", "10"], "not ported"),
+    (["--example", "pines", "--do-fab", "--move-correct", "10"], "move-correct"),
+    (["--example", "4-mode", "--defensive-alpha", "0.5", "--do-dds"], "defensive-alpha"),
+    (["--example", "4-mode", "--move-correct", "10", "--do-smc"], "move-correct"),
     (["--example", "4-mode", "--vmap-seeds"], "not ported"),
+    (["--example", "4-mode", "--plots"], "not ported"),
+    (["--example", "4-mode", "--full-metrics"], "not ported"),
+    (["--example", "4-mode", "--run-dir", "x"], "not ported"),
+    (["--example", "4-mode", "--wandb"], "not ported"),
 ])
 def test_cli_refuses_unported_paths(argv, match):
     from mfm_tpu_torch import cli

@@ -122,3 +122,60 @@ def test_adamw_finite_matches_over_steps(patience):
     assert isinstance(sp, AdamWFiniteState)
     poisoned = any(bool(torch.isnan(v).any()) for v in pparams.values())
     assert poisoned == (patience == 1)
+
+
+def _optax_case(seed=0):
+    """Parameters and four gradients, the third zeroed (a skipped step),
+    as flax-shaped dicts and the port's."""
+    rng = np.random.default_rng(seed)
+    shapes = {"a": (3, 5), "b": (5,), "c": (2,)}
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (0.0 if i == 2 else 3.0 * (i + 1)) * rng.normal(size=s).astype(np.float32)
+              for k, s in shapes.items()} for i in range(4)]
+    return params, grads
+
+
+@pytest.mark.parametrize("kind", ["adam_const", "adam_schedule", "clip_then_adam"])
+def test_adam_clip_and_chain_match_optax(kind):
+    """optax.adam (a constant or the warmup/decay schedule) and
+    chain(clip_by_global_norm(10), adam(schedule)) over four steps, one of
+    them with a zeroed gradient: the moments decay and the count advances
+    on that step too. 1e-6 relative."""
+    import optax
+
+    from mfm_tpu_torch.flows.train import adam, apply_updates, chain, clip_by_global_norm
+
+    params, grads = _optax_case()
+    jsched, psched = j_schedule(8, 2, 1e-2), make_lr_schedule(8, 2, 1e-2)
+    if kind == "adam_const":
+        jopt, popt = optax.adam(1e-2), adam(1e-2)
+    elif kind == "adam_schedule":
+        jopt, popt = optax.adam(jsched), adam(psched)
+    else:
+        jopt = optax.chain(optax.clip_by_global_norm(10.0), optax.adam(jsched))
+        popt = chain(clip_by_global_norm(10.0), adam(psched))
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    pp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    js, ps = jopt.init(jp), popt.init(pp)
+    for g in grads:
+        ju, js = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+        jp = optax.apply_updates(jp, ju)
+        pu, ps = popt.update({k: torch.from_numpy(v.copy()) for k, v in g.items()}, ps, pp)
+        pp = apply_updates(pp, pu)
+        for k in params:
+            np.testing.assert_allclose(npy(pu[k]), np.asarray(ju[k]), rtol=1e-6, atol=1e-9)
+            np.testing.assert_allclose(npy(pp[k]), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
+    adam_state = ps[1] if kind == "clip_then_adam" else ps
+    assert int(adam_state.count) == 4
+
+
+def test_global_norm_matches_optax():
+    import optax
+
+    from mfm_tpu_torch.flows.train import global_norm
+
+    _, grads = _optax_case(1)
+    g = grads[1]
+    np.testing.assert_allclose(
+        float(global_norm({k: torch.from_numpy(v) for k, v in g.items()})),
+        float(optax.global_norm({k: jnp.asarray(v) for k, v in g.items()})), rtol=1e-6)

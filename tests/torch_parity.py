@@ -92,3 +92,34 @@ def nuts_noise(key, B, d, depth, variant):
     stack = lambda us: tt(jnp.stack(us)) if us else torch.zeros((0, B))
     return NUTSNoise(tt(jax.random.normal(key_mom, (B, d))), stack(dirs), stack(tree),
                      stack(takes))
+
+
+def closure_vars(fn) -> dict:
+    """The free variables of a (possibly jitted) closure by name: how a test
+    reaches a reference driver's inner functions (``ais_forward`` inside
+    ``run_fab``, ``rollout`` inside ``run_dds``) without editing it."""
+    fn = getattr(fn, "__wrapped__", fn)
+    return dict(zip(fn.__code__.co_freevars, (c.cell_contents for c in fn.__closure__ or ())))
+
+
+class _Captured(Exception):
+    pass
+
+
+def capture_chunked_scan(module, monkeypatch, run, *args, **kwargs):
+    """Call ``run(*args, **kwargs)`` (a reference driver of ``module``) up to
+    its ``host_chunked_scan`` and return that call's (body, carry, keys)
+    instead of running the scan."""
+    seen = {}
+
+    def fake(body, carry, keys, chunk=None):
+        seen.update(body=body, carry=carry, keys=keys)
+        raise _Captured
+
+    monkeypatch.setattr(module, "host_chunked_scan", fake)
+    try:
+        run(*args, **kwargs)
+    except _Captured:
+        pass
+    monkeypatch.undo()
+    return seen["body"], seen["carry"], seen["keys"]

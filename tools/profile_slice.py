@@ -9,6 +9,7 @@
     python3 tools/profile_slice.py --example pines --flow-smc   # one flow-SMC step
     python3 tools/profile_slice.py --set mcmc_kernel=nuts \\
         --set field_precision=default --set pallas_field=false  # NUTS on phi-four
+    python3 tools/profile_slice.py --baseline fab     # one FAB epoch on phi-four
 
 Builds the example's run with ``build_mfm``, at its initial carry. For
 ``phi-four`` (the default) that is the preset with field_precision=highest
@@ -46,6 +47,12 @@ and the ESS solve at that step's log-likelihoods two ways, the early-exit
 bisection reading its condition on the host each trip
 (``smc.solvers.dichotomy``) against the same bisection with all 100 trips
 masked and queued without a read (host ms each, and their trip counts).
+
+``--baseline fab|flowmc|dds`` profiles one step of that baseline at the
+example's preset (the widths and batch ``cli.py`` gives it): a FAB epoch
+after one prefill pass (and its AIS pass and one gradient update alone), a
+flowMC round, a DDS iteration; host ms over ``--reps`` steps after a warm
+one, and one step under the profiler.
 
 ``--flow-smc`` profiles one flow-SMC tempering step (latent MALA through
 the run's eval transport: two forward transports and two forward and
@@ -139,6 +146,8 @@ def main():
                     help="override a field of the example's preset (repeatable)")
     ap.add_argument("--do-smc", action="store_true", help="profile one SMC baseline step")
     ap.add_argument("--flow-smc", action="store_true", help="profile one flow-SMC step")
+    ap.add_argument("--baseline", choices=["fab", "flowmc", "dds"], default=None,
+                    help="profile one step of this baseline")
     args = ap.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -148,7 +157,8 @@ def main():
         ).stdout.strip(), flush=True)
 
     fused = {"field_precision": "highest", "pallas_field": True}
-    phi_fused = args.example == "phi-four" and not args.do_smc and not args.flow_smc
+    phi_fused = (args.example == "phi-four" and not args.do_smc and not args.flow_smc
+                 and args.baseline is None)
     overrides = {**(fused if phi_fused else {}), **_parse_set(args.set)}
     cfg = preset(args.example, **overrides)
     cfg.seed = 0
@@ -158,6 +168,8 @@ def main():
         target = EXAMPLES[args.example](device=device)
     if args.do_smc:
         return profile_smc(target, cfg, device, args.reps)
+    if args.baseline is not None:
+        return profile_baseline(target, cfg, device, args.baseline, args.reps)
     pieces = build_mfm(target, cfg, device, torch.Generator().manual_seed(0))
     gen = make_generator(device, 0)
     if args.flow_smc:
@@ -294,6 +306,58 @@ def profile_smc(target, cfg, device, reps: int):
     print(json.dumps({"smc": out}), flush=True)
     summary, prof = profiled(step, device)
     print(json.dumps({"profiled": {"smc_step_x1": summary}}), flush=True)
+    sort_by = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
+    print(prof.key_averages().table(sort_by=sort_by, row_limit=12), flush=True)
+
+
+def profile_baseline(target, cfg, device, name: str, reps: int):
+    """One step of a baseline, built as ``cli.py`` builds it."""
+    from mfm_tpu_torch.drivers.dds import build_dds, dds_sigma
+    from mfm_tpu_torch.drivers.fab import build_fab
+    from mfm_tpu_torch.drivers.flowmc import build_flowmc, flowmc_n_layers
+
+    gen = make_generator(device, 0)
+    out = {}
+    if name == "fab":
+        pieces = build_fab(target, cfg.example, 0, cfg.learning_iter, cfg.num_chain,
+                           overrides={"flow": {"conditioner_mlp_units": list(cfg.hidden_xt)}},
+                           device=device)
+        carry = pieces.prefill_one(pieces.init_carry(pieces.params), pieces.draw_ais_noise(gen))
+        step = lambda: pieces.train_iter(carry, pieces.draw_iter_noise(gen))
+        ais = pieces.draw_ais_noise(gen)
+        x = carry.buf_x[: pieces.batch]
+        w = torch.full((pieces.batch,), 1.0 / pieces.batch, device=device)
+        out = {
+            "ais_pass_ms": host_ms(
+                lambda: pieces.ais_forward(carry.params, carry.step_sizes, ais), reps, device),
+            "grad_update_ms": host_ms(
+                lambda: pieces.grad_update(carry, x, w, carry.buf_log_q[: pieces.batch]),
+                reps, device),
+        }
+        label = f"B={pieces.batch} K+1={len(carry.step_sizes)} layers={pieces.flow.module.n_layers}"
+    elif name == "flowmc":
+        steps = max(int(cfg.mcmc_per_flow_steps), 1)
+        pieces = build_flowmc(
+            target, 0, n_chain=cfg.num_chain, n_local_steps=steps, n_global_steps=steps,
+            n_epochs=steps, step_size=cfg.step_size, learning_rate=cfg.learning_rate,
+            n_layers=flowmc_n_layers(cfg), hidden=tuple(cfg.hidden_xt),
+            max_samples=cfg.num_chain * (steps + 1), batch_size=cfg.num_chain, device=device)
+        carry = pieces.init_carry(pieces.params, target.init_positions(gen, cfg.num_chain))
+        step = lambda: pieces.one_loop(carry, pieces.draw_loop_noise(gen, carry))
+        label = f"chains={cfg.num_chain} steps={steps} layers={flowmc_n_layers(cfg)}"
+    else:
+        pieces = build_dds(target, 0, cfg.learning_iter, batch_size=cfg.num_chain,
+                           learning_rate=cfg.learning_rate, hidden=tuple(cfg.hidden_xt),
+                           sigma=dds_sigma(cfg, device), device=device)
+        carry = pieces.init_carry(pieces.params)
+        step = lambda: pieces.train_step(carry, pieces.draw_noise(gen))
+        label = f"B={cfg.num_chain} steps=100"
+    print(f"cfg {cfg.example} {name} d={cfg.dim} widths={tuple(cfg.hidden_xt)} {label}",
+          flush=True)
+    out = {"step_ms": host_ms(step, reps, device), **out}
+    print(json.dumps({name: out}), flush=True)
+    summary, prof = profiled(step, device)
+    print(json.dumps({"profiled": {f"{name}_step_x1": summary}}), flush=True)
     sort_by = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
     print(prof.key_averages().table(sort_by=sort_by, row_limit=12), flush=True)
 
