@@ -44,55 +44,74 @@ own; any failure exits non-zero before the final line:
    included), B=16, d=64;
 5. the phi-four preset as shipped, through mfm_tpu_torch.cli.main (d=64,
    1024 chains, 128-wide trunks, the bf16 field, exact divergence, 24 RK4
-   steps, PhiFour on K3, 200 iterations), with the ESS of the final IS
+   steps, PhiFour on K3, 100 iterations), with the ESS of the final IS
    weights;
 6. the same with the 'phifour' reference (--ref-dist phifour), 100
    iterations;
 7. the same with the fused fp32 field (field_precision=highest,
    pallas_field=true), 300 iterations;
-8. a 4-mode run through the same entry point (reaches the MMD kernel), 100
+8. a 4-mode run through the same entry point (reaches the MMD kernel), 50
    iterations;
 9. pines as shipped at full width (d=1600, 128 chains, trunks 1024, the bf16
    field, Hutchinson, the 'prior' reference, Rademacher eval probes), 120
    iterations: K2a at its eval;
-10. many-well (d=32, 120 iterations) and 11. funnel (d=10, 100): K2a, and
+10. many-well (d=32, 120 iterations) and 11. funnel (d=10, 50): K2a, and
    K2b's general kernel for the MMD against exact draws;
 12. many-well on the fused fp32 field (K1 at d=32), 120 iterations;
-13. gaussian-mixture, 60 iterations;
+13. gaussian-mixture, 30 iterations;
 14-16. 4-mode with the CIS flow kernel (4 candidates), with independence
-   MH, and with the minibatch-OT coupling, 30 iterations each;
+   MH, and with the minibatch-OT coupling, 15 iterations each;
 17. the SMC baseline (--do-smc) on phi-four: 1024 particles, d=64, MALA at
    the preset step on K3, systematic resampling, 1000 adaptive tempering
    steps, with its log Z and final lambda;
 18. the SMC baseline on pines: d=1600, 128 particles, the Cox target on its
    prior path, 500 steps (K2a at (128, 1600) at its eval);
 19. phi-four as shipped with NUTS as the MCMC move (static, depth 6, every
-   leapfrog a K3 launch), step and mass adaptation frozen at iteration 60,
-   100 iterations;
+   leapfrog a K3 launch), step and mass adaptation frozen at iteration 30,
+   50 iterations;
 20. the SMC baseline on 4-mode with HMC on the geometric path, waste-free
-   (P=4), 128 particles, 200 steps, 12,800 harvested samples (K2a, K2b);
-21. pines as shipped, 120 iterations, then 4 flow-annealed SMC steps
-   (--flow-smc 4) with latent MALA on 128 particles at d=1600 through the
+   (P=4), 128 particles, 100 steps, 12,800 harvested samples (K2a, K2b);
+21. pines as shipped, 60 iterations, then 2 flow-annealed SMC steps
+   (--flow-smc 2) with latent MALA on 128 particles at d=1600 through the
    transport with its Rademacher probes (a forward and a reverse pass a
    move);
 22. the FAB baseline (--do-fab) on phi-four: batch 1024, d=64, 8 spline
    coupling layers with 128x128 gelu conditioners (configs/fab/many_well.yaml
    with the preset's hidden_xt), an HMC bridge of K=4 (every gradient of
-   log gamma an autograd pass through the flow and K3's analytic score), 12
+   log gamma an autograd pass through the flow and K3's analytic score), 6
    epochs after 3 prefill passes;
-23. the flowMC baseline (--do-flowmc) on phi-four: 1024 chains, 10 rounds
+23. the flowMC baseline (--do-flowmc) on phi-four: 1024 chains, 5 rounds
    of 10 MALA steps, 10 NLL epochs and 10 flow independence-MH moves;
 24. the DDS baseline (--do-dds) on phi-four: batch 1024, 100 checkpointed
-   steps of a 128-wide control net gated by the detached K3 score, 20
+   steps of a 128-wide control net gated by the detached K3 score, 10
    iterations (at the preset's learning rate its chain blows up within ten
    iterations, in the reference too: a finite row far off the target);
-25. FAB on 4-mode, 20 epochs, 12,800 eval samples (K2a, K2b);
-26. pines as shipped, 120 iterations, then 100 self-tuning MALA moves on the
+25. FAB on 4-mode, 10 epochs, 12,800 eval samples (K2a, K2b);
+26. pines as shipped, 60 iterations, then 100 self-tuning MALA moves on the
    IS-resampled set (--move-correct 100);
 27. many-well, 120 iterations, the IS proposal mixed with 10 % N(0, 4 I)
    (--defensive-alpha 0.9);
-28. 4-mode, 30 iterations, 1 flow-SMC step on 12,800 particles, then 50
-   MALA moves on the annealed ensemble (--flow-smc 1 --move-correct 50).
+28. 4-mode, 15 iterations, 1 flow-SMC step on 12,800 particles, then 50
+   MALA moves on the annealed ensemble (--flow-smc 1 --move-correct 50);
+29-32. the CLI's 10 replication seeds (no --seed) as one seed sweep
+   (--vmap-seeds) at full width, each seed then evaluated on 1,280 samples
+   (eval_iter=10): 4-mode 100 iterations (K2a, K2b), phi-four as shipped
+   100 (K3, the gate, K2a), phi-four on the fused field 100 (K1 on its seed
+   axis, S=10, one launch a stage; K3, the gate, K2a), pines 40 (10 x 128
+   chains at d=1600, 1024-wide trunks; K2a); each prints the sweep's host
+   ms an iteration, per seed, and its training launches an iteration
+   beside the single-seed phase of the same example (5, 7, 8, 9), and
+   every seed's row;
+33. 4-mode, 20 iterations: --vmap-seeds over seeds 0 and 1 against --seed 0
+   and --seed 1 run alone, each row within the stated tolerance;
+34. phi-four on the fused field, 60 iterations in chunks of 20 with a
+   checkpoint each: run, delete the last checkpoint, run again (resumed at
+   40) and hold parameters and chains to the first run's; a run at the
+   finished checkpoint returns no metrics.
+
+Every CLI phase logs under a temporary --run-dir. Phase 3 also holds K1's
+seed axis (S=10 nets on 10 x 1024 rows, 64 tangents, one launch) to its
+plain version and times it beside 10 single-seed launches.
 
 The iteration counts are a small fraction of the presets' (the depth is cut
 so that the whole script stays well inside its time limit on a slow host);
@@ -291,12 +310,15 @@ def phase_kernels(torch, report):
         fail("K1 with tangents disagrees with its plain version")
     if not ms_t < plain_ms_t:
         fail("K1 with tangents is slower than its plain version")
+    seeds = phase_k1_seeds(torch, gen, ms_t, tol_k1)
     report["field_apply"] = dict(
-        max_abs_err=max(err_p[0], err_t[0]), max_rel_err=max(err_p[1], err_t[1]),
+        max_abs_err=max(err_p[0], err_t[0], seeds["max_abs_err"]),
+        max_rel_err=max(err_p[1], err_t[1], seeds["max_rel_err"]),
         ms=ms_t, plain_ms=plain_ms_t, bound_ms=bound_t, bound_by=by_t, library_ms=None,
         flops=flops, share_of_bound=bound_t / ms_t, bound_3xtf32_ms=bound_tc,
         primal_ms=ms_p, primal_plain_ms=plain_ms_p, primal_bound_ms=bound_p,
         shape=f"B={B} d={d} K={K} widths={W} F={F}",
+        seed_axis=seeds,
     )
 
     phase_pairwise(torch, report, gen)
@@ -340,6 +362,47 @@ def phase_kernels(torch, report):
           f"phi_four_value_and_score {k3['launcher_ms']:.4f} ms", flush=True)
     report["phi_four_value_and_score"] = k3
     phase_score_gate(torch, report, gen)
+
+
+def phase_k1_seeds(torch, gen, single_ms, tol):
+    """K1's seed axis at a seed sweep's shape: S=10 nets (every parameter
+    perturbed, different by seed) on 10 x 1024 seed-major rows, d=64, widths
+    128, F=128, 64 tangents, one launch; against the plain version seed by
+    seed, and timed beside S single-seed launches of the same work."""
+    from mfm_tpu_torch.ops import field
+
+    S, B, d, W, F, K = 10, 1024, 64, 128, 128, 64
+    nets = [perturbed_net(torch, d, W, F, None, seed=10 + s)[1] for s in range(S)]
+    stacked = {k: torch.stack([p[k] for p in nets]) for k in nets[0]}
+    layout = field.field_layout(nets[0], F)
+    packed = field.pack_field_params(stacked, layout)
+    freqs = torch.randn((S, F), generator=gen, device="cuda")
+    x = torch.randn((S * B, d), generator=gen, device="cuda")
+    t = torch.rand(S * B, generator=gen, device="cuda")
+    ex = torch.randn((K, S * B, d), generator=gen, device="cuda")
+    kern = lambda: field.field_apply(packed, layout, "relu", freqs, x, t, ex)
+    plain = lambda: field.field_apply_plain(packed, layout, "relu", freqs, x, t, ex)
+    out_k, out_p = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(errors(torch, a, b) for a, b in zip(out_k, out_p))
+    one = [packed[0].contiguous(), freqs[0].contiguous(), x[:B], t[:B], ex[:, :B].contiguous()]
+    single = lambda: field.field_apply(one[0], layout, "relu", one[1], *one[2:])
+    ms_a, single_a = cuda_ms(torch, kern, 10), cuda_ms(torch, single, 20)
+    single_b, ms_b = cuda_ms(torch, single, 20), cuda_ms(torch, kern, 10)
+    ms, single_ms_now = min(ms_a, ms_b), min(single_a, single_b)
+    plain_ms = cuda_ms(torch, plain, 3)
+    flops, nbytes = field.field_flops(layout, S * B, K), field.field_bytes(layout, B, K, S)
+    bnd, by = bound(flops, nbytes)
+    print(f"[3 K1 seed axis S={S} B={B} d={d} K={K}] max abs {err[0]:.3e} rel {err[1]:.3e} "
+          f"(tol rel {tol}); one launch {ms:.4f} ms ({ms_a:.4f} / {ms_b:.4f}), plain "
+          f"{plain_ms:.4f} ms; S x the single-seed launch {S * single_ms_now:.4f} ms "
+          f"({single_ms_now:.4f} each, {single_ms:.4f} in the tangent case above); bound "
+          f"{bnd:.4f} ms ({by}), share {bnd / ms:.3f}", flush=True)
+    if not err[1] <= tol:
+        fail("K1's seed axis disagrees with its plain version")
+    return dict(S=S, shape=f"S={S} B={B} d={d} K={K} widths={W} F={F}", ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                single_seed_x_S_ms=S * single_ms_now, max_abs_err=err[0], max_rel_err=err[1])
 
 
 # K2a/K2b before their redesign, on this card at 700 W (PERF.md section 6):
@@ -764,11 +827,35 @@ def phase_transport(torch):
             fail(f"the {name} path's divergence is not the trace of the field's Jacobian")
 
 
-def run_cli(argv, label):
+# the training loop's launches and train_time of the last run_mfm or
+# run_mfm_seeds call the CLI made (``instrument_training``)
+TRAINING = {}
+
+
+def instrument_training(counters):
+    """Wrap the CLI's ``run_mfm`` and ``run_mfm_seeds`` so that each call
+    records its kernels' launches (training and its warm-up, not the eval)
+    and its train_time in ``TRAINING``."""
     from mfm_tpu_torch import cli
 
+    def wrap(fn):
+        def recorded(*args, **kwargs):
+            before = [f.launches for f in counters]
+            out = fn(*args, **kwargs)
+            TRAINING["launches"] = {f.__name__: f.launches - b for f, b in zip(counters, before)}
+            TRAINING["train_time"] = out.train_time
+            return out
+        return recorded
+
+    cli.run_mfm, cli.run_mfm_seeds = wrap(cli.run_mfm), wrap(cli.run_mfm_seeds)
+
+
+def run_cli(argv, label, run_dir):
+    from mfm_tpu_torch import cli
+
+    TRAINING.clear()
     t0 = time.perf_counter()
-    (m,) = cli.main(argv)
+    (m,) = cli.main([*argv, "--run-dir", run_dir])
     wall = time.perf_counter() - t0
     row = {k: m[k] for k in ("logpdf", "stein_u", "stein_v", "mmd", "logpdf_star",
                              "stein_u_star", "stein_v_star", "mmd_star")}
@@ -786,6 +873,114 @@ def run_cli(argv, label):
     if not all(math.isfinite(v) for v in (*row.values(), *extra.values())):
         fail(f"{label}: non-finite metric row")
     return m
+
+
+ROW = ("logpdf", "stein_u", "stein_v", "mmd", "logpdf_star", "stein_u_star", "stein_v_star",
+       "mmd_star")
+
+
+def run_cli_seeds(argv, label, run_dir, single):
+    """One ``--vmap-seeds`` run of the CLI over its 10 replication seeds:
+    every seed's row finite; host ms an iteration of the sweep and per seed,
+    and the training's launches an iteration, beside ``single`` (the
+    TRAINING record and iterations of the same example's single-seed
+    phase)."""
+    from mfm_tpu_torch import cli
+
+    TRAINING.clear()
+    t0 = time.perf_counter()
+    rows = cli.main([*argv, "--vmap-seeds", "--run-dir", run_dir])
+    wall = time.perf_counter() - t0
+    iters = int(argv[argv.index("--learning-iter") + 1])
+    S = len(rows)
+    sweep_ms = 1e3 * TRAINING["train_time"] / iters
+    per_it = {k: v / iters for k, v in TRAINING["launches"].items()}
+    one_ms = 1e3 * single["train_time"] / single["iters"]
+    one_it = {k: v / single["iters"] for k, v in single["launches"].items()}
+    fmt = lambda d: " ".join(f"{k}={v:.1f}" for k, v in d.items())
+    print(f"[{label}] {S} seeds: sweep train_time {TRAINING['train_time']:.3f} s over {iters} its = "
+          f"{sweep_ms:.2f} host ms an iteration for all seeds, {sweep_ms / S:.2f} per seed "
+          f"(single-seed phase {single['label']}: {one_ms:.2f}); wall {wall:.1f} s; training "
+          f"launches an iteration {fmt(per_it)} (single seed: {fmt(one_it)})", flush=True)
+    print(f"[{label.split()[0]} rows] " + json.dumps(
+        {k: [round(float(m[k]), 5) for m in rows] for k in ROW + ("is_ess",)}), flush=True)
+    if S != 10 or not all(math.isfinite(m[k]) for m in rows for k in ROW):
+        fail(f"{label}: {S} seeds, or a non-finite metric row")
+    return dict(sweep_ms=sweep_ms, per_seed_ms=sweep_ms / S, single_ms=one_ms,
+                launches_per_it=per_it, single_launches_per_it=one_it, wall=wall)
+
+
+def phase_seed_equality(torch, run_dir):
+    """4-mode, 20 iterations: ``--vmap-seeds`` over seeds 0 and 1 (the CLI's
+    sweep and per-seed evaluation) against ``--seed 0`` and ``--seed 1`` run
+    alone. On the CPU the two give the same bits (tests/test_torch_multi_seed.py);
+    on the card the seed axis batches the field's fp32 products (a batched
+    cuBLAS product against an unbatched one, another order of the same
+    sums), whose rounding 20 AdamW steps carry into the trained flow: rows
+    to 1e-2 relative (3.6e-4 on an H100 80GB HBM3). Another seed's row is 3-40 % away,
+    and a wrong seed, noise stream or evaluation would be too."""
+    import argparse
+
+    from mfm_tpu_torch import cli
+    from mfm_tpu_torch.config import preset
+
+    dev = torch.device("cuda")
+    cfg = preset("4-mode", learning_iter=20, mcmc_per_flow_steps=10.0, num_importance_samples=0,
+                 mcmc_kernel="mala", eval_iter=10)
+    args = argparse.Namespace(run_dir=run_dir, wandb=False)
+    target = cli.EXAMPLES["4-mode"](device=dev)
+    swept = cli.run_seeds_vmapped(target, cfg, [0, 1], dev, args)
+    worst, where = 0.0, None
+    for seed, row in zip((0, 1), swept):
+        cfg.seed = seed
+        alone = cli.run_one(target, cfg, dev)
+        for k in ROW:
+            rel = abs(row[k] - alone[k]) / max(abs(alone[k]), 1e-6)
+            if rel >= worst:
+                worst, where = rel, f"{k} of seed {seed}: {row[k]:.6g} against {alone[k]:.6g}"
+    print(f"[33 seed equality] 4-mode 20 its, --vmap-seeds over seeds 0, 1 against each alone: "
+          f"max relative difference of the rows {worst:.3e} (tol 1e-2), at {where}", flush=True)
+    if not worst <= 1e-2:
+        fail("a seed of the sweep disagrees with its run alone")
+    return worst
+
+
+def phase_resume(torch, ckpt_dir):
+    """phi-four on the fused field, 60 iterations in chunks of 20 with a
+    checkpoint each: run, delete step 60, run again (it resumes at 40) and
+    hold its parameters and chains to the first run's; the same kernels on
+    the same inputs, so equal bits are expected, and 1e-6 is the stated
+    tolerance. A run started at the finished checkpoint returns no
+    metrics."""
+    import os
+    import shutil
+
+    from mfm_tpu_torch.config import preset
+    from mfm_tpu_torch.drivers import run_mfm
+    from mfm_tpu_torch.targets import PhiFour
+    from mfm_tpu_torch.utils.checkpoint import latest_step
+
+    cfg = preset("phi-four", seed=0, learning_iter=60, chunk_size=20, field_precision="highest",
+                 pallas_field=True, checkpoint_dir=ckpt_dir, checkpoint_every_chunks=1)
+    target = PhiFour(64)
+    first = run_mfm(target, cfg, "cuda")
+    steps = sorted(int(n.split("_")[1]) for n in os.listdir(ckpt_dir))
+    shutil.rmtree(os.path.join(ckpt_dir, "step_00000060"))
+    resumed_at = latest_step(ckpt_dir)
+    second = run_mfm(target, cfg, "cuda")
+    diff = max(float(torch.max(torch.abs(second.train.params[k] - v)))
+               for k, v in first.train.params.items())
+    diff_x = float(torch.max(torch.abs(second.chain.position - first.chain.position)))
+    ran = {k: tuple(v.shape) for k, v in second.metrics.items()}
+    third = run_mfm(target, cfg, "cuda")
+    print(f"[34 resume] phi-four fused 60 its, chunk 20: checkpoints {steps}; resumed at "
+          f"{resumed_at}, ran {ran.get('loss')}; max abs difference to the whole run: "
+          f"parameters {diff:.3e}, positions {diff_x:.3e} (tol 1e-6); a run at the finished "
+          f"checkpoint returned metrics {third.metrics}", flush=True)
+    if not (steps == [20, 40, 60] and resumed_at == 40 and ran.get("loss") == (20,)
+            and diff <= 1e-6 and diff_x <= 1e-6 and third.metrics == {}):
+        fail("the resumed run is not the whole run")
+    return max(diff, diff_x)
 
 
 def main():
@@ -813,20 +1008,20 @@ def main():
         fn.launches = 0
     K1, K2A, K2B, K3, GATE = (f.__name__ for f in counters)
     fused = ["--set", "field_precision=highest", "--set", "pallas_field=true"]
-    short = ["--example", "4-mode", "--learning-iter", "30"]
+    short = ["--example", "4-mode", "--learning-iter", "15"]
     phases = [  # (arguments after --seed 0, label, the kernels the run must launch)
-        (["--example", "phi-four", "--learning-iter", "200"], "5 phi-four", (K3, GATE, K2A)),
+        (["--example", "phi-four", "--learning-iter", "100"], "5 phi-four", (K3, GATE, K2A)),
         (["--example", "phi-four", "--learning-iter", "100", "--ref-dist", "phifour"],
          "6 phi-four phifour-ref", (K3, GATE, K2A)),
         (["--example", "phi-four", "--learning-iter", "300", *fused],
          "7 phi-four fused field", (K1, K3, GATE, K2A)),
-        (["--example", "4-mode", "--learning-iter", "100"], "8 4-mode", (K2A, K2B)),
+        (["--example", "4-mode", "--learning-iter", "50"], "8 4-mode", (K2A, K2B)),
         (["--example", "pines", "--learning-iter", "120"], "9 pines", (K2A,)),
         (["--example", "many-well", "--learning-iter", "120"], "10 many-well", (K2A, K2B)),
-        (["--example", "funnel", "--learning-iter", "100"], "11 funnel", (K2A, K2B)),
+        (["--example", "funnel", "--learning-iter", "50"], "11 funnel", (K2A, K2B)),
         (["--example", "many-well", "--learning-iter", "120", *fused],
          "12 many-well fused field", (K1, K2A, K2B)),
-        (["--example", "gaussian-mixture", "--learning-iter", "60"], "13 gaussian-mixture",
+        (["--example", "gaussian-mixture", "--learning-iter", "30"], "13 gaussian-mixture",
          (K2A, K2B)),
         ([*short, "--num-importance-samples", "4"], "14 4-mode CIS", (K2A, K2B)),
         ([*short, "--num-importance-samples", "-1"], "15 4-mode independence MH",
@@ -835,39 +1030,75 @@ def main():
         (["--example", "phi-four", "--do-smc", "--learning-iter", "1000"], "17 phi-four SMC",
          (K3, K2A)),
         (["--example", "pines", "--do-smc", "--learning-iter", "500"], "18 pines SMC", (K2A,)),
-        (["--example", "phi-four", "--mcmc-kernel", "nuts", "--learning-iter", "100"],
+        (["--example", "phi-four", "--mcmc-kernel", "nuts", "--learning-iter", "50"],
          "19 phi-four NUTS", (K3, GATE, K2A)),
         (["--example", "4-mode", "--do-smc", "--mcmc-kernel", "hmc", "--set", "smc_path=geometric",
-          "--set", "waste_free_p=4", "--learning-iter", "200"], "20 4-mode HMC waste-free SMC",
+          "--set", "waste_free_p=4", "--learning-iter", "100"], "20 4-mode HMC waste-free SMC",
          (K2A, K2B)),
-        (["--example", "pines", "--learning-iter", "120", "--flow-smc", "4"], "21 pines flow-SMC",
+        (["--example", "pines", "--learning-iter", "60", "--flow-smc", "2"], "21 pines flow-SMC",
          (K2A,)),
-        (["--example", "phi-four", "--do-fab", "--learning-iter", "12"], "22 phi-four FAB",
+        (["--example", "phi-four", "--do-fab", "--learning-iter", "6"], "22 phi-four FAB",
          (K3, K2A)),
-        (["--example", "phi-four", "--do-flowmc", "--learning-iter", "100"],
+        (["--example", "phi-four", "--do-flowmc", "--learning-iter", "50"],
          "23 phi-four flowMC", (K3, K2A)),
-        (["--example", "phi-four", "--do-dds", "--learning-iter", "20"], "24 phi-four DDS",
+        (["--example", "phi-four", "--do-dds", "--learning-iter", "10"], "24 phi-four DDS",
          (K3, K2A)),
-        (["--example", "4-mode", "--do-fab", "--learning-iter", "20"], "25 4-mode FAB",
+        (["--example", "4-mode", "--do-fab", "--learning-iter", "10"], "25 4-mode FAB",
          (K2A, K2B)),
-        (["--example", "pines", "--learning-iter", "120", "--move-correct", "100"],
+        (["--example", "pines", "--learning-iter", "60", "--move-correct", "100"],
          "26 pines move correction", (K2A,)),
         (["--example", "many-well", "--learning-iter", "120", "--defensive-alpha", "0.9"],
          "27 many-well defensive", (K2A, K2B)),
         ([*short, "--flow-smc", "1", "--move-correct", "50"], "28 4-mode flow-SMC and moves",
          (K2A, K2B)),
     ]
-    for argv, label, must in phases:
+    # the same examples with --vmap-seeds and no --seed: the CLI's 10 seeds
+    # as one sweep at full width (per-seed eval on 1,280 samples), each
+    # beside its single-seed phase
+    seeds_eval = ["--set", "eval_iter=10"]
+    seed_phases = [
+        (["--example", "4-mode", "--learning-iter", "100", *seeds_eval],
+         "29 4-mode seeds", (K2A, K2B), "8 4-mode"),
+        (["--example", "phi-four", "--learning-iter", "100", *seeds_eval],
+         "30 phi-four seeds", (K3, GATE, K2A), "5 phi-four"),
+        (["--example", "phi-four", "--learning-iter", "100", *fused, *seeds_eval],
+         "31 phi-four fused field seeds", (K1, K3, GATE, K2A), "7 phi-four fused field"),
+        (["--example", "pines", "--learning-iter", "40", *seeds_eval], "32 pines seeds",
+         (K2A,), "9 pines"),
+    ]
+    import tempfile
+
+    instrument_training(counters)
+    single = {}
+    sweeps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = f"{tmp}/runs"
+        for argv, label, must, *alone in phases + seed_phases:
+            before = [f.launches for f in counters]
+            routes = dict(pairwise.stein_pairwise_sum.route_counts)
+            if alone:
+                sweeps[label] = run_cli_seeds(argv, label, run_dir, single[alone[0]])
+            else:
+                run_cli(["--seed", "0", *argv], label, run_dir)
+                if TRAINING:
+                    single[label] = dict(TRAINING, label=label,
+                                         iters=int(argv[argv.index("--learning-iter") + 1]))
+            n = {f.__name__: f.launches - b for f, b in zip(counters, before)}
+            took = {k: v - routes[k] for k, v in pairwise.stein_pairwise_sum.route_counts.items()}
+            print(f"[{label.split()[0]} launches] " + " ".join(f"{k}={v}" for k, v in n.items())
+                  + f"; K2a routes {took}", flush=True)
+            missing = [k for k in must if not n[k]]
+            if missing:
+                fail(f"{label}: the run launched no {', '.join(missing)}")
         before = [f.launches for f in counters]
-        routes = dict(pairwise.stein_pairwise_sum.route_counts)
-        run_cli(["--seed", "0", *argv], label)
+        phase_seed_equality(torch, run_dir)
+        phase_resume(torch, f"{tmp}/ckpt")
         n = {f.__name__: f.launches - b for f, b in zip(counters, before)}
-        took = {k: v - routes[k] for k, v in pairwise.stein_pairwise_sum.route_counts.items()}
-        print(f"[{label.split()[0]} launches] " + " ".join(f"{k}={v}" for k, v in n.items())
-              + f"; K2a routes {took}", flush=True)
-        missing = [k for k in must if not n[k]]
-        if missing:
-            fail(f"{label}: the run launched no {', '.join(missing)}")
+        print("[33-34 launches] " + " ".join(f"{k}={v}" for k, v in n.items()), flush=True)
+        if not (n[K1] and n[K2A] and n[K2B]):
+            fail("the equality and resume checks launched no K1, K2a or K2b")
+    report["field_apply"]["seed_axis"]["sweep_launches_per_iteration"] = sweeps[
+        "31 phi-four fused field seeds"]["launches_per_it"][K1]
     launches = {f.__name__: f.launches for f in counters}
     print(f"[main path launches] {json.dumps(launches)}", flush=True)
     if not all(launches.values()):

@@ -56,16 +56,18 @@ class WelfordState(NamedTuple):
     count: int  # samples merged so far, a host value
 
 
-def welford_init(dim: int, device=None) -> WelfordState:
+def welford_init(dim, device=None) -> WelfordState:
+    """``dim`` d, or (S, d) for S estimates side by side (one a seed)."""
     return WelfordState(torch.zeros(dim, device=device), torch.zeros(dim, device=device), 0)
 
 
 def welford_update_batch(state: WelfordState, batch: torch.Tensor) -> WelfordState:
-    """Merge a (B, d) batch into the running estimate (Chan et al. merge).
-    The count's ratios are exact float32 values, as the reference's."""
-    b = batch.shape[0]
-    bmean = torch.mean(batch, dim=0)
-    bm2 = torch.sum((batch - bmean) ** 2, dim=0)
+    """Merge a (B, d) batch into the running estimate (Chan et al. merge);
+    (S, B, d) into S estimates (S, d), each batch of the same size. The
+    count's ratios are exact float32 values, as the reference's."""
+    b = batch.shape[-2]
+    bmean = torch.mean(batch, dim=-2)
+    bm2 = torch.sum((batch - bmean[..., None, :]) ** 2, dim=-2)
     delta = bmean - state.mean
     total = state.count + b
     denom = max(total, 1)

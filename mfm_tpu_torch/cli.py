@@ -10,6 +10,7 @@
     python -m mfm_tpu_torch.cli --example phi-four --seed 0 --do-fab
     python -m mfm_tpu_torch.cli --example pines --seed 0 --move-correct 100
     python -m mfm_tpu_torch.cli --example many-well --seed 0 --defensive-alpha 0.9
+    python -m mfm_tpu_torch.cli --example 4-mode --vmap-seeds --run-dir runs
 
 Each example runs its preset as ``mfm_tpu`` ships it (phi-four and pines:
 the bf16 field, ``field_precision='default'``; pines: the 'prior'
@@ -36,8 +37,13 @@ ensemble) with N self-tuning MALA moves on the target (the first row is
 then the IS-resampled set, the second the moved one); ``--defensive-alpha
 a`` draws 1 - a of the IS proposal from N(0, defensive_var I) (the first
 row is the flow's share). With no ``--seed`` it replicates the
-reference's seeds i**10, i < 10. The run needs the device it is given
-(default ``cuda``); it never falls back to another.
+reference's seeds i**10, i < 10; ``--vmap-seeds`` trains them as one
+seed-batched run (``drivers.multi_seed``) and evaluates each seed as a run
+of its own is evaluated. Each seed logs to
+``<run-dir>/<example>-seed<seed>.jsonl`` (``utils.logging``; chunk means,
+the final row, and with ``--full-metrics`` every iteration's metrics);
+``--wandb`` adds Weights & Biases where it is installed. The run needs the
+device it is given (default ``cuda``); it never falls back to another.
 """
 
 import argparse
@@ -59,6 +65,7 @@ from mfm_tpu_torch.drivers import (
     sample_flow,
 )
 from mfm_tpu_torch.drivers.baselines import BASELINES, run_baseline
+from mfm_tpu_torch.drivers.multi_seed import run_mfm_seeds, seed_run
 from mfm_tpu_torch.drivers.mfm import (
     check_normalised,
     defensive_split,
@@ -79,8 +86,8 @@ from mfm_tpu_torch.targets import (
     four_mode_mixture,
     random_mixture,
 )
+from mfm_tpu_torch.utils.logging import MetricLogger
 
-log = logging.getLogger("mfm_tpu_torch")
 
 # example -> factory(device=...) of its target, built on the run's device
 EXAMPLES = {
@@ -93,15 +100,22 @@ EXAMPLES = {
 }
 # flags of the reference CLI whose code paths are not ported yet, with the
 # reference's defaults (any other value is refused)
-NOT_PORTED_FLAGS = {
-    "vmap_seeds": False, "plots": False, "full_metrics": False, "run_dir": "runs",
-    "wandb": False,
-}
+NOT_PORTED_FLAGS = {"plots": False}
+RUN_DIR = "runs"  # --run-dir's default, the reference's
 
 
-class _ChunkLogger:
-    def log(self, metrics: dict):
-        log.info(" ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
+def make_logger(cfg, args) -> MetricLogger:
+    """The reference's per-seed logger: ``<run_dir>/<example>-seed<seed>.jsonl``."""
+    return MetricLogger(
+        run_dir=args.run_dir,
+        run_name=f"{cfg.example}-seed{cfg.seed}",
+        use_wandb=args.wandb,
+        wandb_kwargs={
+            "project": cfg.example,
+            "group": f"dim={cfg.dim}",
+            "job_type": f"mcmc_per_flow_steps={cfg.mcmc_per_flow_steps}",
+        },
+    )
 
 
 def _parse_set(items):
@@ -127,7 +141,8 @@ def _parse_set(items):
 
 def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
             flow_smc: int = 0, baseline: str = None, move_correct: int = 0,
-            defensive_alpha: float = 1.0, defensive_var: float = 4.0) -> dict:
+            defensive_alpha: float = 1.0, defensive_var: float = 4.0,
+            logger: MetricLogger = None, full_metrics: bool = False, run=None) -> dict:
     """One seed: train, sample, evaluate. Returns the metric row with
     ``train_time``, ``it_per_s``, and the ESS of the weights behind the
     ``*_star`` row and its number of distinct points (``is_ess``,
@@ -148,7 +163,13 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
     star row the moved set. ``defensive_alpha`` < 1: the IS proposal mixes
     in N(0, defensive_var I); the first row is the flow's share of the
     draws. An MFM run that adapts its step size reports the last one
-    (``step_size``)."""
+    (``step_size``).
+
+    ``logger`` (default: none) gets the chunk means, the extras and the
+    final row, and with ``full_metrics`` every iteration's metrics. ``run``:
+    an MFM run already trained (one seed of a sweep), evaluated in place of
+    a training run."""
+    log_to = logger if logger is not None else MetricLogger(stdout_every=0)
     n_eval = cfg.eval_iter * cfg.num_chain
     real_samples = None
     if target.can_sample:
@@ -160,7 +181,7 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
         train_time = result.train_time
         extra = {"log_z": float(result.log_z), "lmbda": float(result.lmbda),
                  "is_ess": None, "is_unique": None}
-        log.info(f"SMC log_z={extra['log_z']:.6g} lmbda={extra['lmbda']:.6g}")
+        log_to.log({"lmbda": extra["lmbda"], "log_z": extra["log_z"]})
     elif baseline is not None:
         result = run_baseline(baseline, target, cfg, seed=cfg.seed, n_eval=n_eval, device=device)
         flow_samples, exact_samples = result.flow_samples, result.exact_samples
@@ -168,9 +189,10 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
         extra = {k: v for k, v in result.extras.items() if isinstance(v, float)}
         extra["is_ess"] = extra["is_ess_frac"] * n_eval
         extra["is_unique"] = int(torch.unique(exact_samples, dim=0).shape[0])
-        log.info(" ".join(f"{k}={v:.6g}" for k, v in extra.items()))
+        log_to.log(dict(extra))
     else:
-        run = run_mfm(target, cfg, device, logger=_ChunkLogger())
+        if run is None:
+            run = run_mfm(target, cfg, device, logger=log_to)
         train_time = run.train_time
         gen = make_generator(device, cfg.seed, 999)
         if defensive_alpha < 1.0:
@@ -198,7 +220,7 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
             extra = {"flow_smc_log_z": float(r.log_z), "flow_smc_lmbda": float(r.lmbda),
                      "flow_smc_ess_fraction": float(r.ess_fraction),
                      "flow_smc_time": r.train_time}
-            log.info(" ".join(f"{k}={v:.6g}" for k, v in extra.items()))
+            log_to.log(dict(extra))
             if move_correct:  # the annealed ensemble seeds the move kernel
                 noises = draw_move_noise(gen, move_correct, n_eval, cfg.dim)
                 exact_samples = mala_move_correct(exact_samples, target, noises,
@@ -210,12 +232,29 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
     metrics = evaluate_samples(target, flow_samples, exact_samples, real_samples)
     if check and real_samples is not None:
         floor = check_floor(target, real_samples)
-        log.info(" ".join(f"{k}={v:.4g}" for k, v in floor.items()))
+        log_to.summary(floor)
         metrics.update(floor)
     metrics.update(extra)
     metrics["train_time"] = train_time
     metrics["it_per_s"] = cfg.learning_iter / train_time
+    log_to.summary(metrics)
+    if full_metrics and run is not None:
+        log_to.log_per_iteration(run.metrics)
+    log_to.finish()
     return metrics
+
+
+def run_seeds_vmapped(target, cfg, seeds, device, args) -> list:
+    """All seeds trained as one seed-batched run (``run_mfm_seeds``), then
+    each seed evaluated as ``run_one`` evaluates a run of its own, with the
+    sweep's train_time shared out evenly. Returns the per-seed rows."""
+    sweep = run_mfm_seeds(target, cfg, seeds, device)
+    results = []
+    for i, seed in enumerate(seeds):
+        cfg.seed = seed
+        results.append(run_one(target, cfg, device, logger=make_logger(cfg, args),
+                               run=seed_run(sweep, cfg, i)))
+    return results
 
 
 def _check_flags(args) -> None:
@@ -237,6 +276,22 @@ def _check_flags(args) -> None:
         raise SystemExit(
             "--flow-smc applies only to the MFM run and replaces its final correction; drop "
             f"{non_mfm[0]} or --flow-smc (it does compose with --move-correct)")
+    if args.vmap_seeds:
+        baselines = [f for f in non_mfm if f != "--do-smc"]
+        if baselines:
+            raise SystemExit(
+                "--vmap-seeds only applies to the MFM sampler; drop it or the baseline flag "
+                f"({', '.join(baselines)})")
+        if not args.do_smc:
+            conflicts = [f for f, on in (
+                ("--move-correct", args.move_correct), ("--flow-smc", args.flow_smc),
+                ("--defensive-alpha", args.defensive_alpha < 1.0), ("--check", args.check),
+                ("--full-metrics", args.full_metrics)) if on]
+            if conflicts:
+                raise SystemExit(
+                    f"--vmap-seeds trains the seeds as one run and evaluates each with the "
+                    f"plain IS correction; {', '.join(conflicts)} would be ignored: drop it "
+                    "or --vmap-seeds")
     if not 0.0 < args.defensive_alpha <= 1.0:
         raise SystemExit(f"--defensive-alpha must be in (0, 1], got {args.defensive_alpha}")
     if args.defensive_alpha < 1.0:
@@ -295,6 +350,16 @@ def main(argv=None):
                         "1.0 (default) is the flow alone")
     p.add_argument("--defensive-var", type=float, default=4.0,
                    help="variance of the defensive component")
+    p.add_argument("--vmap-seeds", action="store_true",
+                   help="train every replication seed as one seed-batched run, then "
+                        "evaluate each seed (the MFM sampler only; --do-smc runs its "
+                        "seeds one by one)")
+    p.add_argument("--run-dir", default=RUN_DIR,
+                   help=f"directory of the per-seed JSONL logs (default: {RUN_DIR})")
+    p.add_argument("--full-metrics", action="store_true",
+                   help="also log every training iteration's metrics")
+    p.add_argument("--wandb", action="store_true",
+                   help="also log to Weights & Biases, where it is installed")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any MFMConfig field (repeatable)")
     for flag, default in NOT_PORTED_FLAGS.items():
@@ -338,13 +403,18 @@ def main(argv=None):
     baseline = next((n for n in BASELINES if getattr(args, f"do_{n}")), None)
 
     seeds = [args.seed] if args.seed is not None else [i**10 for i in range(10)]
-    results = []
-    for seed in seeds:
-        cfg.seed = seed
-        results.append(run_one(
-            target, cfg, device, check=args.check, do_smc=args.do_smc, flow_smc=args.flow_smc,
-            baseline=None if args.do_smc else baseline, move_correct=args.move_correct,
-            defensive_alpha=args.defensive_alpha, defensive_var=args.defensive_var))
+    if args.vmap_seeds and not args.do_smc:
+        results = run_seeds_vmapped(target, cfg, seeds, device, args)
+    else:
+        results = []
+        for seed in seeds:
+            cfg.seed = seed
+            results.append(run_one(
+                target, cfg, device, check=args.check, do_smc=args.do_smc,
+                flow_smc=args.flow_smc, baseline=None if args.do_smc else baseline,
+                move_correct=args.move_correct, defensive_alpha=args.defensive_alpha,
+                defensive_var=args.defensive_var, logger=make_logger(cfg, args),
+                full_metrics=args.full_metrics))
 
     cols = ("logpdf", "stein_u", "stein_v", "mmd", "train_time")
     rows = np.asarray([[m[c] for c in cols] for m in results])

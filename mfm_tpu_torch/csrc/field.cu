@@ -56,6 +56,12 @@
 //   memory). 4-row tiles give 256 blocks, two waves on 132 SMs with the
 //   same work per SM, twice the padded primal rows and twice the weight
 //   traffic: 13 % slower (tools/field_variants.py).
+// - The seed axis. S independent nets (a seed sweep, the reference's
+//   pallas_call under jax.vmap) run in one launch: blockIdx.y is the seed,
+//   which offsets the weights (p_stride floats a seed), the frequencies and
+//   the rows (seed-major: seed s owns rows s*B ... s*B+B-1 of x and of each
+//   tangent slice). A row tile never straddles two seeds, so B need not be
+//   a multiple of 8; the block body is the single-seed one.
 // - Measured limits (H100 80GB HBM3, 700 W): mma.sync in TF32 peaks at
 //   ~314 TFLOP/s on this card (tools/field_variants.py), so the three
 //   passes alone need 0.086 ms at the slice; the kernel takes ~0.27 ms.
@@ -293,7 +299,7 @@ field_kernel(const __grid_constant__ FieldMeta m, const float* __restrict__ P,
              const float* __restrict__ freqs, const float* __restrict__ x,
              const float* __restrict__ t, const float* __restrict__ ex,
              float* __restrict__ field, float* __restrict__ gate, float* __restrict__ dfield,
-             int B, int K, int aligned) {
+             int B, int K, int S, int p_stride, int aligned) {
   extern __shared__ __align__(16) float smem[];
   const int chunk_rows = chunk_rows_of(K);
   const int lda = m.lda, ldt = m.ldt, d = m.d, F = m.F, act = m.act;
@@ -313,6 +319,21 @@ field_kernel(const __grid_constant__ FieldMeta m, const float* __restrict__ P,
     tiles[i] = make_int4(m.tile_off[i], m.tile_rows[i], m.tile_n[i], 0);
   __syncthreads();
 
+  // the seed axis: seed s owns weights P[s * p_stride ...], frequencies
+  // freqs[s * F ...] and rows s * B ... s * B + B - 1 of x, t, field, gate
+  // and of each tangent slice of ex and dfield (K, S * B, d)
+  const int s = blockIdx.y;
+  const size_t ex_rows = (size_t)S * B;
+  P += (size_t)s * p_stride;
+  freqs += (size_t)s * F;
+  x += (size_t)s * B * d;
+  t += (size_t)s * B;
+  field += (size_t)s * B * d;
+  gate += (size_t)s * B * d;
+  if (K) {
+    ex += (size_t)s * B * d;
+    dfield += (size_t)s * B * d;
+  }
   const int row0 = blockIdx.x * kTB;
   Pipe p{ring, tiles, P, 0, 0, m.n_ptiles + (K + kKC - 1) / kKC * m.n_ctiles, 0, aligned != 0};
   for (int s = 0; s < kStages - 1; ++s) pipe_issue(p, m);
@@ -379,7 +400,7 @@ field_kernel(const __grid_constant__ FieldMeta m, const float* __restrict__ P,
     for (int i = threadIdx.x; i < m_tiles * 16 * d; i += kThreads) {
       const int j = i / d, c = i % d, row = row0 + j % kTB;
       xc[j * lda + c] =
-          j < rows && row < B ? ex[((size_t)(c0 + j / kTB) * B + row) * d + c] : 0.f;
+          j < rows && row < B ? ex[((size_t)(c0 + j / kTB) * ex_rows + row) * d + c] : 0.f;
     }
     for (int h = 0; h < n_h; ++h) {
       const int L = m.n_t + h;
@@ -390,7 +411,7 @@ field_kernel(const __grid_constant__ FieldMeta m, const float* __restrict__ P,
     }
     chunk_layer(p, m, xc, lda, m.k_in[Lf], d, m_tiles, [&](int r, int c, float v) {
       const int row = row0 + r % kTB;
-      if (r < rows && row < B) dfield[((size_t)(c0 + r / kTB) * B + row) * d + c] = v;
+      if (r < rows && row < B) dfield[((size_t)(c0 + r / kTB) * ex_rows + row) * d + c] = v;
     });
   }
 }
@@ -399,7 +420,8 @@ field_kernel(const __grid_constant__ FieldMeta m, const float* __restrict__ P,
 
 MFM_EXPORT int mfm_field_apply(const float* packed, const int* meta_host, const float* freqs,
                                const float* x, const float* t, const float* ex, float* field,
-                               float* gate, float* dfield, int B, int K, cudaStream_t stream) {
+                               float* gate, float* dfield, int B, int K, int S, int p_stride,
+                               cudaStream_t stream) {
   // once per process: allow up to the whole 227 KB of dynamic shared memory
   static const cudaError_t attr = cudaFuncSetAttribute(
       field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -409,14 +431,16 @@ MFM_EXPORT int mfm_field_apply(const float* packed, const int* meta_host, const 
                 "int-only struct");
   memcpy(&m, meta_host, sizeof(FieldMeta));
   const int n_layers = m.n_t + m.n_x + m.n_xt + 2;
-  bool ok = B > 0 && K >= 0 && n_layers <= kMaxLayers && m.n_xt >= 1 && m.n_ptiles > 0 &&
+  bool ok = B > 0 && K >= 0 && S > 0 && S <= 65535 && p_stride >= 0 && n_layers <= kMaxLayers && m.n_xt >= 1 && m.n_ptiles > 0 &&
             m.n_ctiles > 0 && m.n_ptiles + m.n_ctiles <= kMaxTiles &&
             sizeof(float) * smem_floats(m, K) <= (size_t)kMaxSmem;
   for (int l = 0; ok && l < n_layers; ++l) ok = m.n_out[l] <= 128 && m.k_in[l] <= 256;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const int aligned = (reinterpret_cast<uintptr_t>(packed) & 15) == 0;
-  field_kernel<<<(B + kTB - 1) / kTB, kThreads, sizeof(float) * smem_floats(m, K), stream>>>(
-      m, packed, freqs, x, t, ex, field, gate, dfield, B, K, aligned);
+  // every seed's weights 16-byte aligned, or the copies go 4 bytes at a time
+  const int aligned = (reinterpret_cast<uintptr_t>(packed) & 15) == 0 && (S == 1 || p_stride % 4 == 0);
+  const dim3 grid((B + kTB - 1) / kTB, S);
+  field_kernel<<<grid, kThreads, sizeof(float) * smem_floats(m, K), stream>>>(
+      m, packed, freqs, x, t, ex, field, gate, dfield, B, K, S, p_stride, aligned);
   return mfm_last_error();
 }
 

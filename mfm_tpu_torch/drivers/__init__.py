@@ -18,6 +18,7 @@ from mfm_tpu_torch.drivers.mfm import (
     sample_flow_move,
     sample_flow_parts,
 )
+from mfm_tpu_torch.drivers.multi_seed import SeedSweep, run_mfm_seeds, seed_run
 from mfm_tpu_torch.drivers.smc_run import SMCRunResult, run_smc
 
 __all__ = [
@@ -38,6 +39,9 @@ __all__ = [
     "sample_flow_defensive_parts",
     "sample_flow_move",
     "sample_flow_parts",
+    "SeedSweep",
+    "run_mfm_seeds",
+    "seed_run",
     "FlowSMCResult",
     "run_flow_smc",
     "SMCRunResult",

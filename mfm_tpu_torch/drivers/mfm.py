@@ -28,7 +28,23 @@ After training, ``sample_flow_move`` adds self-tuning MALA moves to the
 IS-resampled set, and ``sample_flow_defensive`` draws through a defensive
 mixture with a wide Gaussian.
 
-Not ported yet: meshes and checkpoints.
+A seed sweep (``drivers.multi_seed``, the reference's ``jax.vmap`` of
+the whole run) is the same step with a seed axis: ``build_mfm`` given one
+init generator a seed carries S ensembles of B chains as S B seed-major
+rows (seed s owns rows s B ... s B + B - 1) through one move, one
+transport (``flows.cnf``'s seed binders) and one score gate; the
+parameters, optimizer state, tempering level and adaptation state have a
+leading seed axis, the flow-matching gradient and the AdamW update run
+under ``torch.func.vmap`` over seeds, and each seed's metrics are its own.
+The interleave, the freeze and the mass refresh depend only on the shared
+counter and stay host decisions; tempering is one host check (some seed
+below 1) and a per-seed select.
+
+``run_mfm`` resumes from ``cfg.checkpoint_dir`` and saves there every
+``checkpoint_every_chunks`` chunks (``utils.checkpoint``): the carry and
+the state of the noise generator, which fix the rest of the run.
+
+Not ported yet: meshes.
 """
 
 import math
@@ -36,7 +52,8 @@ import time
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
-from torch.func import functional_call, grad_and_value
+from torch.func import functional_call, grad_and_value, vmap
+from torch.utils._pytree import tree_map
 
 from mfm_tpu_torch.adaptation.window import (
     da_init,
@@ -70,10 +87,12 @@ from mfm_tpu_torch.flows.train import TrainState
 from mfm_tpu_torch.flows.vector_field import PRECISIONS
 from mfm_tpu_torch.kernels import ChainState, mala
 from mfm_tpu_torch.kernels.mala import MalaNoise
+from mfm_tpu_torch.kernels.nuts import NUTSNoise
 from mfm_tpu_torch.ops.field import ACTIVATIONS, check_fits, field_layout
 from mfm_tpu_torch.smc.solvers import bisection
 from mfm_tpu_torch.targets import make_ref_dist
 from mfm_tpu_torch.targets.base import PriorReference, Target
+from mfm_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
 class MFMCarry(NamedTuple):
@@ -81,7 +100,8 @@ class MFMCarry(NamedTuple):
     train: TrainState
     beta: torch.Tensor
     # in-loop adaptation (None when off): dual-averaging state, Welford mass
-    # accumulator, diagonal inverse mass; one for the whole ensemble
+    # accumulator, diagonal inverse mass; one for the whole ensemble (one a
+    # seed in a sweep)
     da: object = None
     wf: object = None
     inv_mass: Optional[torch.Tensor] = None
@@ -116,20 +136,72 @@ class MFMPieces(NamedTuple):
     lr_fn: Callable
     tx: object  # the optimizer (flows.train.GradientTransformation)
     field_bind: Callable  # the transport's tangent field (cnf.make_transport)
+    fourier: torch.Tensor = None  # (F,), or (S, F) for a seed sweep
+    binder: Callable = None  # (net, freqs) -> a tangent field (a binder of flows.cnf)
+
+
+class SeedAxis(NamedTuple):
+    """Where a seed sweep's per-seed values meet its S B chain rows
+    (seed-major); ``S`` None is one run with no seed axis."""
+
+    S: Optional[int]
+    B: int
+
+    def rows(self, v, n: Optional[int] = None):
+        """A per-seed value (S, ...) repeated over its seed's rows: B of
+        them, or n / S of n seed-major rows (CIS's S B N candidates)."""
+        if self.S is None or not isinstance(v, torch.Tensor):
+            return v
+        return v.repeat_interleave(self.B if n is None else n // self.S, dim=0)
+
+    def split(self, v):
+        """Per-row values (S B, ...) as (S, B, ...)."""
+        return v if self.S is None else v.unflatten(0, (self.S, self.B))
+
+
+def stack_trees(trees):
+    """One tree of tensors stacked on a new leading axis from S alike trees;
+    a leaf that is not a tensor (None, a Welford count) is shared and taken
+    from the first."""
+    return tree_map(lambda *vs: torch.stack(vs) if isinstance(vs[0], torch.Tensor) else vs[0],
+                    *trees)
+
+
+def cat_rows(noises):
+    """S seeds' noise tuples (B rows each) as one on S B seed-major rows:
+    along the chain axis, which is the last one of NUTS's (depth, B)
+    uniforms and the first one elsewhere."""
+    first = noises[0]
+    out = []
+    for name, v in zip(first._fields, zip(*noises)):
+        if v[0] is None:
+            out.append(None)
+            continue
+        dim = -1 if isinstance(first, NUTSNoise) and name != "eps" else 0
+        out.append(torch.cat(v, dim=dim))
+    return type(first)(*out)
+
+
+def _vmap_dims(tree):
+    """in_dims for ``torch.func.vmap`` over the leading axis of every tensor
+    of ``tree`` (None for its None leaves)."""
+    return tree_map(lambda v: None if v is None else 0, tree)
 
 
 def ess_of(logw: torch.Tensor) -> torch.Tensor:
+    """ESS of the weights over the last axis (one a seed for (S, B))."""
     w = torch.softmax(logw, dim=-1)
-    return 1.0 / torch.sum(w * w)
+    return 1.0 / torch.sum(w * w, dim=-1)
 
 
 def next_beta(prev_beta, logliks, alpha: float, n_chain: int, n_iters: int = 30):
     """Smallest beta in [prev_beta, 1] whose incremental weights keep
     ESS = alpha * n_chain (fixed-iteration bisection); 1 when even beta=1
-    keeps the ESS above target."""
+    keeps the ESS above target. ``logliks`` (S, B) with ``prev_beta`` (S,)
+    solves each seed's level at once, in the same 30 trips."""
 
     def gap(beta):
-        return ess_of(logliks * (beta - prev_beta)) - alpha * n_chain
+        return ess_of(logliks * (beta - prev_beta)[..., None]) - alpha * n_chain
 
     return bisection(gap, prev_beta, 1.0, n_iters=n_iters, device=logliks.device)
 
@@ -161,13 +233,8 @@ def set_field_precision(field_precision: str) -> None:
 
 
 def _check_ported(cfg) -> None:
-    unported = {
-        "mesh_shape": cfg.mesh_shape is not None,
-        "checkpoint_dir": cfg.checkpoint_dir is not None,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError("not ported yet: mesh_shape")
 
 
 def reference_of(target: Target, cfg, device) -> Target:
@@ -179,10 +246,14 @@ def reference_of(target: Target, cfg, device) -> Target:
 
 
 def build_mfm(
-    target: Target, cfg, device, init_generator: torch.Generator
+    target: Target, cfg, device, init_generator
 ) -> MFMPieces:
     """Construct the pieces of an MFM run. ``init_generator`` (on the CPU)
-    draws the Fourier frequencies and the initial weights."""
+    draws the Fourier frequencies and the initial weights; a sequence of
+    them, one a seed, builds a seed sweep (the module docstring): its
+    ``step_fn`` carries every seed, ``init_fn`` takes the S B seed-major
+    initial rows and ``draw_step_noise`` one generator a seed, each drawn
+    as a run of that seed alone draws."""
     _check_ported(cfg)
     set_field_precision(cfg.field_precision)
     if cfg.divergence == "exact_disc" and cfg.dim > EXACT_DISC_MAX_D:
@@ -192,14 +263,21 @@ def build_mfm(
         )
     use_real_samples = cfg.mcmc_per_flow_steps < 0
     B, d = cfg.num_chain, cfg.dim
+    swept = not isinstance(init_generator, torch.Generator)
+    gens = list(init_generator) if swept else [init_generator]
+    axis = SeedAxis(len(gens) if swept else None, B)
 
-    fourier = cfg.fourier_std * torch.randn(cfg.fourier_dim, generator=init_generator)
-    net = VectorFieldNet(
-        d, fourier, tuple(cfg.hidden_x), tuple(cfg.hidden_t), tuple(cfg.hidden_xt),
-        act=cfg.non_linearity, score_fn=target.score, score_clip=cfg.score_clip,
-        generator=init_generator, precision=cfg.field_precision,
-        score_gate=target.score_gate,  # the transport's: fused where the target has it
-    ).to(device)
+    nets = []
+    for gen in gens:
+        fourier = cfg.fourier_std * torch.randn(cfg.fourier_dim, generator=gen)
+        nets.append(VectorFieldNet(
+            d, fourier, tuple(cfg.hidden_x), tuple(cfg.hidden_t), tuple(cfg.hidden_xt),
+            act=cfg.non_linearity, score_fn=target.score, score_clip=cfg.score_clip,
+            generator=gen, precision=cfg.field_precision,
+            score_gate=target.score_gate,  # the transport's: fused where the target has it
+        ).to(device))
+    net = nets[0]  # the structure; a sweep's parameters and frequencies are stacked
+    fourier = (torch.stack([n.fourier_freqs for n in nets]) if swept else net.fourier_freqs)
 
     # pallas_field asks for the fused kernel: a net it cannot take is refused
     # (the reference falls back to its flax path; the port never falls back)
@@ -216,9 +294,10 @@ def build_mfm(
                 f"got {cfg.non_linearity!r}; set pallas_field=false"
             )
         check_fits(field_layout(dict(net.named_parameters()), cfg.fourier_dim))
-        bind = kernel_tangent_field(net)
+        binder = kernel_tangent_field
     else:
-        bind = module_tangent_field(net)
+        binder = module_tangent_field
+    bind = binder(net, fourier if swept else None)
     transport = make_transport(
         bind, divergence=cfg.divergence, n_steps=cfg.ode_steps, method=cfg.ode_method
     )
@@ -238,7 +317,8 @@ def build_mfm(
     draw_flow_noise = flow_noise_sampler(cfg.num_importance_samples)
     conditional = cfg.cond_flow or cfg.ot_cond_flow
 
-    def loss_fn(params, samples, noise: FMNoise):
+    def loss_fn(params, samples, noise: FMNoise, freqs=None):
+        """One seed's loss; ``freqs`` in place of the net's own frequencies."""
         if conditional:
             batch = cond_fm_sample(
                 samples, noise.t, noise.x0, noise.eps, cfg.sigma,
@@ -246,28 +326,45 @@ def build_mfm(
             )
         else:
             batch = fm_sample(samples, noise.t, noise.eps, cfg.sigma)
-        return flow_matching_loss(lambda x, t: functional_call(net, params, (x, t)), batch)
+        p = params if freqs is None else {**params, "fourier_freqs": freqs}
+        return flow_matching_loss(lambda x, t: functional_call(net, p, (x, t)), batch)
 
-    loss_and_grad = grad_and_value(loss_fn)
+    if swept:
+        def loss_and_grad(params, samples, noise):
+            return vmap(grad_and_value(loss_fn), in_dims=(0, 0, _vmap_dims(noise), 0))(
+                params, axis.split(samples), noise, fourier)
+
+        # each seed's update on its own gradient: a non-finite one skips only
+        # that seed's step and counts only in its notfinite_count
+        apply_grads = vmap(lambda state, grads: apply_gradients(state, grads, tx))
+    else:
+        loss_and_grad = grad_and_value(loss_fn)
+        apply_grads = lambda state, grads: apply_gradients(state, grads, tx)
+
+    def vs_at(beta):
+        return lambda x: vs_fn(x, axis.rows(beta, x.shape[0]))
 
     def init_fn(init_positions):
         """Tempering level from the ESS rule at beta=0; chains initialised
         at that tempered target."""
+        dev = init_positions.device
+        lead = () if axis.S is None else (axis.S,)
         if use_real_samples:
-            beta = torch.ones((), device=init_positions.device)
+            beta = torch.ones(lead, device=dev)
         else:
-            beta = next_beta(0.0, target.log_lik(init_positions), cfg.alpha, B)
-        chain = mala.init(init_positions, lambda x: vs_fn(x, beta))
-        train = create_train_state(field_params(net), tx)
+            beta = next_beta(0.0, axis.split(target.log_lik(init_positions)), cfg.alpha, B)
+        chain = mala.init(init_positions, vs_at(beta))
+        states = [create_train_state(field_params(n), tx) for n in nets]
+        train = stack_trees(states) if swept else states[0]
         if not adapting:
             return MFMCarry(chain, train, beta)
-        dev = init_positions.device
-        return MFMCarry(chain, train, beta, da_init(cfg.step_size, dev), welford_init(d, dev),
-                        torch.ones(d, device=dev))
+        step = cfg.step_size if axis.S is None else torch.full(lead, cfg.step_size)
+        return MFMCarry(chain, train, beta, da_init(step, dev), welford_init(lead + (d,), dev),
+                        torch.ones(lead + (d,), device=dev))
 
     def step_size_of(da, count: int):
         """The step the kernel takes at iteration ``count``: the averaged one
-        once frozen."""
+        once frozen (one a seed in a sweep)."""
         if not adapt_step:
             return cfg.step_size
         return torch.exp(da.log_step_avg if count > freeze_iter else da.log_step)
@@ -276,18 +373,20 @@ def build_mfm(
         """Dual averaging on the mean acceptance; Welford over the pooled
         positions, a mass refresh (and a re-anchored step) once the Welford
         count reaches ``mass_refresh_every`` MCMC steps. Called only before
-        the freeze."""
+        the freeze. Each seed of a sweep on its own B chains; the count is
+        the same for all."""
         if adapt_step:
-            da = da_update(da, torch.nan_to_num(torch.mean(acc), nan=0.0), target_acc)
+            mean_acc = torch.mean(axis.split(acc), dim=-1)
+            da = da_update(da, torch.nan_to_num(mean_acc, nan=0.0), target_acc)
         if adapt_mass:
-            wf = welford_update_batch(wf, position)
+            wf = welford_update_batch(wf, axis.split(position))
             if wf.count >= cfg.mass_refresh_every * B:
                 inv_mass = welford_variance(wf)
-                wf = welford_init(d, position.device)
+                wf = welford_init(inv_mass.shape, position.device)
                 da = da_init(torch.exp(da.log_step_avg))
         return da, wf, inv_mass
 
-    def draw_step_noise(gen: torch.Generator, count: int):
+    def draw_one(gen: torch.Generator, count: int):
         dev = gen.device
         if use_real_samples:
             move = target.sample(gen, (B,))
@@ -303,19 +402,32 @@ def build_mfm(
         )
         return move, fm
 
+    def draw_step_noise(gen, count: int):
+        """The iteration's (move noise, FMNoise): from one generator, or
+        from one a seed (``gen`` a sequence), each seed's drawn as its own
+        run draws them, the move's on S B rows and the FMNoise (S, B, ...)."""
+        if not swept:
+            return draw_one(gen, count)
+        moves, fms = zip(*(draw_one(g, count) for g in gen))
+        move = torch.cat(moves) if use_real_samples else cat_rows(moves)
+        return move, stack_trees(fms)
+
     def data_step(carry: MFMCarry, count, noise):
         """(chain, acceptance, da, wf, inv_mass) after the iteration's move."""
         chain, da, wf, inv_mass = carry.chain, carry.da, carry.wf, carry.inv_mass
         if use_real_samples:
-            zeros = torch.zeros(B, device=noise.device)
+            zeros = torch.zeros(noise.shape[0], device=noise.device)
             nan = torch.full_like(zeros, torch.nan)
             return ChainState(noise, zeros, torch.zeros_like(noise)), nan, da, wf, inv_mass
-        vs = lambda x: vs_fn(x, carry.beta)
+        vs = vs_at(carry.beta)
         if _interleave_is_flow(count, cfg.mcmc_per_flow_steps):
             tgt = FlowTarget(vs, ref_dist.log_prob, ref_dist.sample)
             new, info = flow_kernel(chain, carry.train.params, transport, tgt, *noise)
             return new, info.acceptance_rate, da, wf, inv_mass
-        kernel = mcmc_builder(vs, (step_size_of(da, count), inv_mass))
+        step = step_size_of(da, count)
+        if axis.S is not None and isinstance(step, torch.Tensor):
+            step = axis.rows(step)[:, None]
+        kernel = mcmc_builder(vs, (step, axis.rows(inv_mass)))
         new, info = kernel(chain, noise)
         if adapting and count <= freeze_iter:
             da, wf, inv_mass = update_adaptation(info.acceptance_rate, new.position, da, wf,
@@ -323,22 +435,34 @@ def build_mfm(
         return new, info.acceptance_rate, da, wf, inv_mass
 
     def temper_step(chain, beta):
-        new_beta = next_beta(beta, target.log_lik(chain.position), cfg.alpha, B)
-        return mala.init(chain.position, lambda x: vs_fn(x, new_beta)), new_beta
+        """The ESS rule's next level and the chains re-initialised there; in
+        a sweep, seeds already at 1 keep theirs (the reference's batched
+        ``lax.cond`` is the same select)."""
+        new_beta = next_beta(beta, axis.split(target.log_lik(chain.position)), cfg.alpha, B)
+        fresh = mala.init(chain.position, vs_at(new_beta))
+        if axis.S is None:
+            return fresh, new_beta
+        live = beta < 1.0
+        rows = axis.rows(live)
+        chain = ChainState(*(torch.where(rows.view((-1,) + (1,) * (n.ndim - 1)), n, o)
+                             for n, o in zip(fresh, chain)))
+        return chain, torch.where(live, new_beta, beta)
 
     def step_fn(carry: MFMCarry, count: int, move_noise, fm_noise: FMNoise):
         chain, acc, da, wf, inv_mass = data_step(carry, count, move_noise)
         grads, loss = loss_and_grad(carry.train.params, chain.position, fm_noise)
-        train = apply_gradients(carry.train, grads, tx)
+        train = apply_grads(carry.train, grads)
         beta = carry.beta
-        if not use_real_samples and count % cfg.iter_per_temp == 0 and bool(beta < 1.0):
+        if (not use_real_samples and count % cfg.iter_per_temp == 0
+                and bool((beta < 1.0).any())):
             chain, beta = temper_step(chain, beta)
-        mean = torch.nanmean(acc)
+        per_seed = axis.split(acc)
+        mean = torch.nanmean(per_seed, dim=-1)
         metrics = {
             "loss": loss.detach(),
             "learning_rate": lr_fn(carry.train.step),
             "acceptance_mean": mean,
-            "acceptance_std": torch.sqrt(torch.nanmean((acc - mean) ** 2)),
+            "acceptance_std": torch.sqrt(torch.nanmean((per_seed - mean[..., None]) ** 2, dim=-1)),
             "beta": beta,
         }
         if adapt_step:  # after this iteration's update (the averaged one once frozen)
@@ -348,7 +472,7 @@ def build_mfm(
     return MFMPieces(
         step_fn=step_fn, init_fn=init_fn, draw_step_noise=draw_step_noise, net=net,
         transport=transport, ref_dist=ref_dist, loss_fn=loss_fn, lr_fn=lr_fn, tx=tx,
-        field_bind=bind,
+        field_bind=bind, fourier=fourier, binder=binder,
     )
 
 
@@ -362,19 +486,109 @@ def _synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_mfm(target: Target, cfg, device="cuda", logger=None) -> MFMRun:
-    """Train an MFM sampler. ``logger`` (optional) gets ``log(dict)`` once
-    per chunk with the chunk-mean metrics.
+def eval_transport(cfg, bind, default=None):
+    """The evaluation-facing transport of the tangent field ``bind``: more
+    or other probes, or a finer grid, where ``cfg`` asks for them; else
+    ``default`` (the training transport), or one built as training builds
+    it."""
+    if (
+        cfg.eval_hutchinson_probes != 1
+        or cfg.eval_probe_dist != "gaussian"
+        or cfg.eval_ode_steps is not None
+    ):
+        return make_transport(
+            bind, divergence=cfg.divergence, n_steps=cfg.eval_ode_steps or cfg.ode_steps,
+            method=cfg.ode_method, num_probes=cfg.eval_hutchinson_probes,
+            probe_dist=cfg.eval_probe_dist,
+        )
+    if default is not None:
+        return default
+    return make_transport(bind, divergence=cfg.divergence, n_steps=cfg.ode_steps,
+                          method=cfg.ode_method)
+
+
+def train_loop(pieces: MFMPieces, cfg, device, carry: MFMCarry, gen, warm_gen,
+               logger=None, eval_loss=None):
+    """(carry, metrics, train_time) of ``cfg.learning_iter`` iterations of
+    ``pieces.step_fn`` from ``carry``, the noise drawn from ``gen`` (one
+    generator, or one a seed for a sweep). Metrics are per iteration on
+    the last axis ((n,), or (S, n) for a sweep).
 
     Before the timed loop, a warm-up runs the first MCMC and the first flow
-    iteration on the initial state with a separate generator and discards
-    the result: it builds the CUDA kernels and initialises the libraries, so
-    ``train_time`` measures the steady loop."""
+    iteration on the carry with ``warm_gen`` and discards the result: it
+    builds the CUDA kernels and initialises the libraries, so
+    ``train_time`` measures the steady loop.
+
+    With ``cfg.checkpoint_dir``, the loop resumes from the latest
+    checkpoint there and saves one every ``checkpoint_every_chunks``
+    chunks: the carry and the generators' states, which fix the rest of
+    the run. A run resumed at or past ``learning_iter`` returns empty
+    metrics."""
+    gens = list(gen) if isinstance(gen, (list, tuple)) else [gen]
+    n_iter = cfg.learning_iter
+    chunk = max(1, min(cfg.chunk_size, n_iter))
+
+    done = 0
+    if cfg.checkpoint_dir is not None:
+        template = (carry, [g.get_state() for g in gens])
+        restored, step = restore_checkpoint(cfg.checkpoint_dir, template=template)
+        if restored is not None:
+            carry, states = restored
+            for g, state in zip(gens, states):
+                g.set_state(state)
+            done = step
+
+    if done < n_iter:
+        seen = set()
+        for count in range(1, n_iter + 1):
+            kind = cfg.mcmc_per_flow_steps >= 0 and _interleave_is_flow(
+                count, cfg.mcmc_per_flow_steps)
+            if kind not in seen:
+                seen.add(kind)
+                pieces.step_fn(carry, count, *pieces.draw_step_noise(warm_gen, count))
+            if len(seen) == 2 or cfg.mcmc_per_flow_steps < 0:  # exact draws: one kind
+                break
+    _synchronize(device)
+
+    metrics_chunks = []
+    train_start = time.perf_counter()
+    chunks_done = 0
+    while done < n_iter:
+        take = min(chunk, n_iter - done)
+        rows = []
+        for count in range(done + 1, done + take + 1):
+            carry, m = pieces.step_fn(carry, count, *pieces.draw_step_noise(gen, count))
+            rows.append(m)
+        m = {k: torch.stack([r[k] for r in rows], dim=-1) for k in rows[0]}
+        metrics_chunks.append(m)
+        done += take
+        chunks_done += 1
+        if logger is not None:
+            chunk_mean = {k: float(torch.mean(v)) for k, v in m.items()}
+            chunk_mean["iter"] = done
+            chunk_mean["train_time"] = time.perf_counter() - train_start
+            if eval_loss is not None:
+                chunk_mean["target_loss"] = float(eval_loss(carry.train.params))
+            logger.log(chunk_mean)
+        if (cfg.checkpoint_dir is not None and cfg.checkpoint_every_chunks
+                and chunks_done % cfg.checkpoint_every_chunks == 0):
+            save_checkpoint(cfg.checkpoint_dir, done, (carry, [g.get_state() for g in gens]))
+    _synchronize(device)
+    train_time = time.perf_counter() - train_start
+    metrics = {}
+    if metrics_chunks:  # none when resumed at (or past) learning_iter
+        metrics = {k: torch.cat([c[k] for c in metrics_chunks], dim=-1)
+                   for k in metrics_chunks[0]}
+    return carry, metrics, train_time
+
+
+def run_mfm(target: Target, cfg, device="cuda", logger=None) -> MFMRun:
+    """Train an MFM sampler (``train_loop``: the warm-up, the timed loop,
+    checkpoints). ``logger`` (optional) gets ``log(dict)`` once per chunk
+    with the chunk-mean metrics."""
     pieces = build_mfm(target, cfg, device, torch.Generator().manual_seed(cfg.seed))
     gen = make_generator(device, cfg.seed)
     carry = pieces.init_fn(target.init_positions(gen, cfg.num_chain))
-    n_iter = cfg.learning_iter
-    chunk = max(1, min(cfg.chunk_size, n_iter))
 
     eval_loss = None
     if logger is not None and target.can_sample:
@@ -390,55 +604,11 @@ def run_mfm(target: Target, cfg, device="cuda", logger=None) -> MFMRun:
         )
         eval_loss = lambda params: pieces.loss_fn(params, probe, probe_noise)
 
-    warm_gen = make_generator(device, cfg.seed, 1)
-    seen = set()
-    for count in range(1, n_iter + 1):
-        kind = _interleave_is_flow(count, cfg.mcmc_per_flow_steps)
-        if kind not in seen:
-            seen.add(kind)
-            pieces.step_fn(carry, count, *pieces.draw_step_noise(warm_gen, count))
-        if len(seen) == 2:
-            break
-    _synchronize(device)
-
-    metrics_chunks = []
-    train_start = time.perf_counter()
-    done = 0
-    while done < n_iter:
-        take = min(chunk, n_iter - done)
-        rows = []
-        for count in range(done + 1, done + take + 1):
-            carry, m = pieces.step_fn(carry, count, *pieces.draw_step_noise(gen, count))
-            rows.append(m)
-        m = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-        metrics_chunks.append(m)
-        done += take
-        if logger is not None:
-            chunk_mean = {k: float(torch.mean(v)) for k, v in m.items()}
-            chunk_mean["iter"] = done
-            chunk_mean["train_time"] = time.perf_counter() - train_start
-            if eval_loss is not None:
-                chunk_mean["target_loss"] = float(eval_loss(carry.train.params))
-            logger.log(chunk_mean)
-    _synchronize(device)
-    train_time = time.perf_counter() - train_start
-    metrics = {k: torch.cat([c[k] for c in metrics_chunks]) for k in metrics_chunks[0]}
-
-    # evaluation-facing transport: more or other probes, a finer grid
-    transport = pieces.transport
-    if (
-        cfg.eval_hutchinson_probes != 1
-        or cfg.eval_probe_dist != "gaussian"
-        or cfg.eval_ode_steps is not None
-    ):
-        transport = make_transport(
-            pieces.field_bind, divergence=cfg.divergence,
-            n_steps=cfg.eval_ode_steps or cfg.ode_steps, method=cfg.ode_method,
-            num_probes=cfg.eval_hutchinson_probes, probe_dist=cfg.eval_probe_dist,
-        )
+    carry, metrics, train_time = train_loop(
+        pieces, cfg, device, carry, gen, make_generator(device, cfg.seed, 1), logger, eval_loss)
     return MFMRun(
         carry.train, carry.chain, carry.beta, metrics, train_time,
-        transport, pieces.ref_dist, pieces.net,
+        eval_transport(cfg, pieces.field_bind, pieces.transport), pieces.ref_dist, pieces.net,
     )
 
 

@@ -23,6 +23,16 @@ target's fused kernel where it has one, else ``vmap(jvp)`` of the score
 Leaving the derivative out would silently bias the logdet once the gate
 head is trained.
 
+Both binders take the frequencies as ``freqs`` (default: the net's own).
+Frequencies (S, F) bind a seed sweep: ``bind(params)`` then takes
+parameters stacked on a leading seed axis, and ``f`` takes seed-major rows,
+x (S B, d), t (S B,), ex (K, S B, d), seed s owning rows s B ... s B + B -
+1 (the reference's field under ``jax.vmap`` over seeds). K1 covers every
+seed in one launch; the module path puts a ``torch.func.vmap`` over seeds
+outside its tangent ``vmap`` of ``jvp``. The score gate runs once on all
+S B rows, outside any ``vmap``: a fused gate writes through the tensors'
+memory and cannot take a batched tensor.
+
 Divergence estimators: ``exact`` pushes the d basis vectors (in chunks of
 ``EXACT_CHUNK`` tangents, built contiguous once per transport) and sums
 the diagonal; ``hutchinson`` takes
@@ -69,25 +79,46 @@ class _MLP(torch.nn.Module):
         return self.net.mlp(x, t)
 
 
-def module_tangent_field(net: torch.nn.Module) -> Callable:
+def _seed_rows(S: int, *tensors):
+    """Seed-major rows (S B, ...) as (S, B, ...); ex (K, S B, d) as (K, S, B, d)."""
+    return [v.unflatten(-2 if v.ndim == 3 else 0, (S, -1)) for v in tensors]
+
+
+def module_tangent_field(net: torch.nn.Module, freqs: Optional[torch.Tensor] = None) -> Callable:
     """``bind(params) -> f(x, t, ex)``: the net's MLP under
     ``torch.func.jvp`` at ``params`` (its primal computed once, inside the
-    jvp), then the score gate."""
+    jvp), then the score gate. ``freqs`` (S, F) binds a seed sweep (see
+    the module docstring)."""
     mlp = _MLP(net)
+    seeds = freqs is not None and freqs.ndim == 2
+
+    def tangents(mlp_params, x, t, ex):
+        def apply(u):
+            return functional_call(mlp, mlp_params, (u, t))  # (field, gate as aux)
+
+        def one(e):
+            field, dfield, gate = jvp(apply, (x,), (e,), has_aux=True)
+            return dfield, field, gate
+
+        # field and gate do not depend on e: vmap returns them expanded over
+        # the K tangents (out_dims=None refuses a tensor batched over seeds)
+        dfield, field, gate = vmap(one)(ex)
+        return dfield, field[0], gate[0]
 
     def bind(params):
         gate_fn = net.score_gate
         mlp_params = {f"net.{k}": v for k, v in params.items()}
+        if freqs is not None:
+            mlp_params["net.fourier_freqs"] = freqs
 
         def f(x, t, ex):
-            def apply(u):
-                return functional_call(mlp, mlp_params, (u, t))  # (field, gate as aux)
-
-            def one(e):
-                field, dfield, gate = jvp(apply, (x,), (e,), has_aux=True)
-                return dfield, field, gate
-
-            dfield, field, gate = vmap(one, out_dims=(0, None, None))(ex)
+            if seeds:
+                S = freqs.shape[0]
+                dfield, field, gate = vmap(tangents, in_dims=(0, 0, 0, 1), out_dims=(1, 0, 0))(
+                    mlp_params, *_seed_rows(S, x, t, ex))
+                dfield, field, gate = dfield.flatten(1, 2), field.flatten(0, 1), gate.flatten(0, 1)
+            else:
+                dfield, field, gate = tangents(mlp_params, x, t, ex)
             if gate_fn is None:
                 return field, dfield
             return gate_fn(
@@ -99,19 +130,20 @@ def module_tangent_field(net: torch.nn.Module) -> Callable:
     return bind
 
 
-def kernel_tangent_field(net: torch.nn.Module) -> Callable:
+def kernel_tangent_field(net: torch.nn.Module, freqs: Optional[torch.Tensor] = None) -> Callable:
     """``bind(params) -> f(x, t, ex)`` through the fused field kernel; the
-    weights are packed once per ``bind`` (once per transport call)."""
+    weights are packed once per ``bind`` (once per transport call).
+    ``freqs`` (S, F) binds a seed sweep: one launch for every seed."""
     layout = field_layout(dict(net.named_parameters()), net.fourier_freqs.shape[0])
 
     def bind(params):
         packed = pack_field_params(params, layout)
-        freqs = net.fourier_freqs.contiguous()
+        fr = (net.fourier_freqs if freqs is None else freqs).contiguous()
         gate_fn = net.score_gate
 
         def f(x, t, ex):
             x, ex = x.contiguous(), ex.contiguous()
-            field, gate, dfield = field_apply(packed, layout, net.act_name, freqs, x, t, ex)
+            field, gate, dfield = field_apply(packed, layout, net.act_name, fr, x, t, ex)
             if gate_fn is None:
                 return field, dfield
             return gate_fn(x, gate, field, ex, dfield, net.score_clip)

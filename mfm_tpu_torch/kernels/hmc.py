@@ -57,7 +57,9 @@ def leapfrog(value_and_score, q, p, g, step_size, inv_mass, n_steps: int):
 def build_kernel(value_and_score: Callable, divergence_threshold: float = 1000.0) -> Callable:
     """``kernel(state, step_size, num_integration_steps, inverse_mass, eps,
     u_accept) -> (state, HMCInfo)``; ``inverse_mass`` (d,), a scalar, or
-    None for the identity. ``step_size`` a number or a 0-d tensor."""
+    None for the identity. ``step_size`` a number or a 0-d tensor. One step
+    and one inverse mass a chain, (B, 1) and (B, d), also work (a seed
+    sweep's per-seed values on its rows)."""
 
     def kernel(
         state: ChainState, step_size, num_integration_steps: int,

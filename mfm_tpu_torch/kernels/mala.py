@@ -38,15 +38,21 @@ def init(position: torch.Tensor, value_and_score: Callable) -> ChainState:
     return ChainState(position, logdensity, grad)
 
 
+def _row(step_size):
+    """A (B, 1) step as (B,), to scale a per-chain sum; else unchanged."""
+    return step_size[:, 0] if isinstance(step_size, torch.Tensor) and step_size.ndim == 2 else step_size
+
+
 def _transition_energy(logdensity_a, pos_a, grad_a, pos_b, step_size):
     theta = pos_b - pos_a - step_size * grad_a
     theta_dot = torch.sum(theta * theta, dim=-1)
-    return -logdensity_a + 0.25 / step_size * theta_dot
+    return -logdensity_a + 0.25 / _row(step_size) * theta_dot
 
 
 def build_kernel(value_and_score: Callable) -> Callable:
     """``kernel(state, step_size, noise, u_accept) -> (state, info)``;
-    ``step_size`` a number or a 0-d tensor."""
+    ``step_size`` a number, a 0-d tensor or one step a chain, (B, 1) (a
+    seed sweep's per-seed steps on its rows)."""
 
     def kernel(
         state: ChainState, step_size: float, noise: torch.Tensor, u_accept: torch.Tensor
@@ -71,7 +77,7 @@ def build_kernel(value_and_score: Callable) -> Callable:
         sampled, accept, p_accept = static_binomial_sampling(u_accept, prev, new_proposal)
         theta = state.position - proposed - step_size * prop_grad
         proposed_weight = torch.exp(
-            prop_logdensity + 0.25 / step_size * torch.sum(theta * theta, dim=-1)
+            prop_logdensity + 0.25 / _row(step_size) * torch.sum(theta * theta, dim=-1)
         )
         return sampled.state, ChainInfo(p_accept, accept, proposed, proposed_weight)
 

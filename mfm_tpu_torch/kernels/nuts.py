@@ -143,7 +143,9 @@ def build_kernel(
 ) -> Callable:
     """``kernel(state, step_size, inverse_mass, noise: NUTSNoise) -> (state,
     NUTSInfo)``; ``inverse_mass`` (d,) or None for the identity,
-    ``step_size`` a number or a 0-d tensor."""
+    ``step_size`` a number or a 0-d tensor. One step and one inverse mass a
+    chain, (B, 1) and (B, d), also work (a seed sweep's per-seed values on
+    its rows)."""
     variant = resolve_variant(max_depth, variant)
 
     def build_tree(depth, tree_u, z_start, step, inv_mass, direction, h0, active) -> _Tree:

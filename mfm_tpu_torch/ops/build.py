@@ -34,8 +34,9 @@ _F = ctypes.c_float
 _S = ctypes.c_char_p
 # (restype, argtypes) of every exported C function, in csrc's order
 SIGNATURES = {
-    # packed, meta (host int*), freqs, x, t, ex, field, gate, dfield, B, K, stream
-    "mfm_field_apply": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P)),
+    # packed, meta (host int*), freqs, x, t, ex, field, gate, dfield, B, K, S,
+    # p_stride, stream
+    "mfm_field_apply": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     # X, S, T, d, b, items, n_items, partials, counter, out (3), stream
     "mfm_stein_sum": (_I, (_P, _P, _I, _I, _F, _P, _I, _P, _P, _P, _P)),
     # X, S, T, d, Tp, dp, mean, Xc, Sp, sq, sxx, stream

@@ -14,6 +14,12 @@ The kernel streams the weights in tiles of ``TILE_ROWS`` rows in the order
 it consumes them; ``weight_tiles`` builds that schedule and ``kernel_meta``
 the struct that carries it, once per (layout, activation).
 ``field_flops`` and ``field_bytes`` count one call's work.
+
+The seed axis (the reference's ``pallas_call`` under ``jax.vmap`` of a seed
+sweep): ``packed`` (S, P) and ``freqs`` (S, F) hold S nets of one layout,
+and the rows are seed-major, x (S B, d), t (S B,), ex (K, S B, d), seed s
+owning rows s B ... s B + B - 1. One launch covers every seed; the plain
+version is ``field_apply_plain`` applied seed by seed.
 """
 
 import ctypes
@@ -103,14 +109,16 @@ def field_layout(params: dict, n_fourier: int) -> FieldLayout:
 
 
 def pack_field_params(params: dict, layout: FieldLayout) -> torch.Tensor:
-    """One contiguous fp32 buffer: per layer W^T (in, out) then the bias."""
+    """One contiguous fp32 buffer: per layer W^T (in, out) then the bias;
+    (S, P), one row a seed, for parameters stacked on a leading seed axis."""
     t_names, x_names, xt_names = _ordered_layers(params)
+    lead = params["field_head.bias"].shape[:-1]  # () or (S,)
     parts = []
     for name in t_names + x_names + xt_names + ["gate_head", "field_head"]:
-        parts.append(params[f"{name}.weight"].detach().t().reshape(-1))
-        parts.append(params[f"{name}.bias"].detach().reshape(-1))
-    packed = torch.cat(parts).to(torch.float32).contiguous()
-    assert packed.numel() == layout.size
+        parts.append(params[f"{name}.weight"].detach().transpose(-1, -2).reshape(lead + (-1,)))
+        parts.append(params[f"{name}.bias"].detach().reshape(lead + (-1,)))
+    packed = torch.cat(parts, dim=-1).to(torch.float32).contiguous()
+    assert packed.shape[-1] == layout.size
     return packed
 
 
@@ -123,7 +131,18 @@ _ACT_FNS = {
 def field_apply_plain(packed, layout: FieldLayout, act: str, freqs, x, t, ex=None):
     """Plain PyTorch version of the kernel, with the same split-weight
     algebra as ``field_pallas._reference_apply``; the K tangents ride a
-    leading batch axis of the same products."""
+    leading batch axis of the same products. With a seed axis (``packed``
+    (S, P)), the single-seed version on each seed's rows."""
+    if packed.ndim == 2:
+        S = packed.shape[0]
+        B = x.shape[0] // S
+        outs = [
+            field_apply_plain(packed[s], layout, act, freqs[s], x[s * B:(s + 1) * B],
+                              t[s * B:(s + 1) * B],
+                              None if ex is None else ex[:, s * B:(s + 1) * B])
+            for s in range(S)
+        ]
+        return tuple(torch.cat(parts, dim=-2) for parts in zip(*outs))
     a, da = _ACT_FNS[act]
 
     def weight(l, k_in=None, off=None):
@@ -245,11 +264,13 @@ def field_flops(layout: FieldLayout, B: int, K: int) -> int:
     return 2 * B * (primal + K * tangent)
 
 
-def field_bytes(layout: FieldLayout, B: int, K: int) -> int:
+def field_bytes(layout: FieldLayout, B: int, K: int, S: int = 1) -> int:
     """Bytes one call must move: x, t, the frequencies, the packed weights
-    and ex read once; field, gate and dfield written once (fp32)."""
+    and ex read once; field, gate and dfield written once (fp32). ``B``
+    rows a seed, ``S`` seeds (each with its own weights and frequencies)."""
     d = layout.d
-    return 4 * (B * d + B + layout.F + layout.size + K * B * d + 2 * B * d + K * B * d)
+    per_seed = B * d + B + layout.F + layout.size + K * B * d + 2 * B * d + K * B * d
+    return 4 * S * per_seed
 
 
 def field_apply(
@@ -261,15 +282,24 @@ def field_apply(
     t: torch.Tensor,
     ex: Optional[torch.Tensor] = None,
 ):
-    """(field, gate[, dfield]) for x (B, d), t (B,), ex (K, B, d)."""
+    """(field, gate[, dfield]) for x (B, d), t (B,), ex (K, B, d); with a
+    seed axis, ``packed`` (S, P), ``freqs`` (S, F) and seed-major rows x
+    (S B, d), t (S B,), ex (K, S B, d)."""
     if act not in ACTIVATIONS:
         raise ValueError(f"fused field supports activations {ACTIVATIONS}, got {act!r}")
+    S = packed.shape[0] if packed.ndim == 2 else 1
+    if packed.ndim not in (1, 2) or freqs.shape != packed.shape[:-1] + (layout.F,) or (
+        x.shape[0] % S
+    ):
+        raise ValueError("field_apply: packed (P,) or (S, P), freqs (F,) or (S, F), and "
+                         "S B rows")
     if x.device.type == "cpu":
         return field_apply_plain(packed, layout, act, freqs, x, t, ex)
     if x.device.type != "cuda":
         raise ValueError(f"field_apply: unsupported device {x.device}")
     meta = kernel_meta(layout, act)  # raises if the kernel cannot take the field
-    B, d = x.shape
+    rows, d = x.shape
+    B = rows // S
     K = 0 if ex is None else ex.shape[0]
     tensors = {"packed": packed, "freqs": freqs, "x": x, "t": t}
     if ex is not None:
@@ -279,19 +309,19 @@ def field_apply(
             raise ValueError(f"field_apply: {name} must be contiguous float32 on {x.device}")
         if v.requires_grad:
             raise ValueError(f"field_apply: {name} requires grad; the kernel is forward only")
-    if d != layout.d or t.shape != (B,) or freqs.shape != (layout.F,) or (
-        ex is not None and ex.shape[1:] != (B, d)
-    ) or packed.numel() != layout.size:
+    if B == 0 or d != layout.d or t.shape != (rows,) or (
+        ex is not None and ex.shape[1:] != (rows, d)
+    ) or packed.shape[-1] != layout.size:
         raise ValueError("field_apply: shapes do not match the layout")
     field = torch.empty_like(x)
     gate = torch.empty_like(x)
-    dfield = torch.empty((K, B, d), device=x.device) if K else None
+    dfield = torch.empty((K, rows, d), device=x.device) if K else None
     lib = build.load_library()
     err = lib.mfm_field_apply(
         packed.data_ptr(), ctypes.addressof(meta),
         freqs.data_ptr(), x.data_ptr(), t.data_ptr(),
         ex.data_ptr() if K else None, field.data_ptr(), gate.data_ptr(),
-        dfield.data_ptr() if K else None, B, K,
+        dfield.data_ptr() if K else None, B, K, S, layout.size,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "field_apply")

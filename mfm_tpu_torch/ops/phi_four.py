@@ -82,6 +82,17 @@ def _refuse_grad(name: str, *tensors) -> None:
         )
 
 
+def _refuse_vmap(name: str, *tensors) -> None:
+    """The score gate writes through its tensors' memory: raise on a tensor
+    batched by ``torch.func.vmap`` (a seed sweep calls it once on all its
+    rows, outside the seed vmap)."""
+    if any(t is not None and torch._C._functorch.is_batchedtensor(t) for t in tensors):
+        raise ValueError(
+            f"{name}: called under torch.func.vmap; the fused score gate takes plain "
+            "(B, d) rows: call it once on every row, outside the vmap"
+        )
+
+
 def phi_four_score_gate_plain(
     x, gate, field, ex=None, dfield=None, a: float = 0.1, beta: float = 20.0,
     pbc: bool = False, bc_value: float = 0.0, tilt_lambda: float = 0.0,
@@ -164,6 +175,7 @@ def phi_four_score_gate(
     CUDA tensors (or raises). Forward only: raises if an input requires
     grad."""
     _refuse_grad("phi_four_score_gate", x, gate, field, ex, dfield)
+    _refuse_vmap("phi_four_score_gate", x, gate, field, ex, dfield)
     if x.device.type == "cpu":
         return phi_four_score_gate_plain(
             x, gate, field, ex, dfield, a, beta, pbc, bc_value, tilt_lambda, tilt_val, clip

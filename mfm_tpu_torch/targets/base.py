@@ -13,6 +13,11 @@ score gate ``gate * clip(score(x))`` and its x-tangents; the generic body
 (``generic_score_gate``) differentiates ``score`` with ``vmap(jvp)``, and a
 target with a fused kernel for it overrides the method (``PhiFour``).
 
+The tempering level ``beta`` of ``tempered_log_prob`` and
+``tempered_value_and_score`` is a number, a 0-d tensor or one level a row,
+(B,) for x (B, d) (a seed sweep tempers each seed's rows on its own level);
+``beta_column`` lines it up with a (B, d) score.
+
 ``GeometricPath`` re-splits a target's tempering path around N(0, I);
 ``PriorReference`` makes a target's own prior the flow's reference
 distribution (``ref_dist='prior'``).
@@ -33,6 +38,12 @@ def _value_and_grad(fn, x):
 
     g, (_, lp) = grad_and_value(total, has_aux=True)(x)
     return lp, g
+
+
+def beta_column(beta):
+    """``beta`` shaped to scale a (B, d) score: a (B,) level a row becomes
+    (B, 1); a number or a 0-d tensor stays as it is."""
+    return beta[..., None] if isinstance(beta, torch.Tensor) and beta.ndim else beta
 
 
 def generic_score_gate(
@@ -153,7 +164,8 @@ class GeometricPath(Target):
     def tempered_value_and_score(self, x, beta):
         """(1 - beta) * q0 + beta * p, reusing p's own value and score."""
         value, grad = self._target.value_and_score(x)
-        return beta * value + (1.0 - beta) * self._log_q0(x), beta * grad - (1.0 - beta) * x
+        col = beta_column(beta)
+        return beta * value + (1.0 - beta) * self._log_q0(x), col * grad - (1.0 - col) * x
 
     def sample(self, generator, shape=()):
         return self._target.sample(generator, shape)

@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mfm_tpu_torch.targets.base import Target
+from mfm_tpu_torch.targets.base import Target, beta_column
 
 _DATA_PATH = os.path.join(os.path.dirname(__file__), "data", "finpines.csv")
 
@@ -176,7 +176,7 @@ class LogGaussianCoxPines(Target):
                 - 0.5 * torch.sum(x * x, dim=-1)
                 + self._white_log_norm
             )
-            grad = beta * _matmul(lik_resid, self._chol) - x
+            grad = beta_column(beta) * _matmul(lik_resid, self._chol) - x
         else:
             y = x - self._mu_zero
             py = _matmul(y, self._prec.T)
@@ -185,7 +185,7 @@ class LogGaussianCoxPines(Target):
                 - 0.5 * torch.sum(y * py, dim=-1)
                 + self._latent_log_norm
             )
-            grad = beta * (self._counts - self._bin_area * torch.exp(x)) - py
+            grad = beta_column(beta) * (self._counts - self._bin_area * torch.exp(x)) - py
         return val, grad
 
     def init_positions(self, generator, n_chain):

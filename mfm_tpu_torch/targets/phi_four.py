@@ -34,7 +34,7 @@ from mfm_tpu_torch.ops.phi_four import (
     phi_four_score_gate,
     phi_four_value_and_score,
 )
-from mfm_tpu_torch.targets.base import Target
+from mfm_tpu_torch.targets.base import Target, beta_column
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -151,7 +151,7 @@ class PhiFour(Target):
 
     def tempered_value_and_score(self, x, beta):
         value, score = self.value_and_score(x)
-        return beta * value, beta * score
+        return beta * value, beta_column(beta) * score
 
     def init_positions(self, generator, n_chain):
         """Uniform(-1, 1) initial fields."""

@@ -8,6 +8,11 @@ DDS control net is the same tree with no ``t_trunk`` or ``x_trunk``. A
 ``CouplingStack`` tree is ``conditioners_i`` / ``Dense_j`` (the last one the
 output head) and, with act-norm, ``an_scale`` / ``an_shift``. A flax
 ``Dense`` kernel is (in, out); ``nn.Linear.weight`` is (out, in).
+
+A seed sweep's tree (the reference's ``SeedSweep.params``, every leaf with
+a leading seed axis) converts the same way into the port's stacked
+``{name: (S, ...)}`` dict, its ``SeedSweep.fourier`` (S, F) into a stacked
+``fourier_freqs``.
 """
 
 import numpy as np
@@ -21,9 +26,10 @@ def params_from_flax(tree, fourier_freqs=None) -> dict:
     """The port's ``state_dict`` from a flax tree of (nested dicts of)
     arrays, with or without the top-level ``params`` key. The Fourier
     frequencies, if given, become the ``fourier_freqs`` buffer. Also
-    converts trees of the same shape, such as AdamW moments."""
+    converts trees of the same shape, such as AdamW moments, and trees
+    stacked on a leading seed axis (kernels (S, in, out))."""
     p = tree["params"] if "params" in tree else tree
-    dense = lambda d: (np.asarray(d["kernel"]).T, np.asarray(d["bias"]))
+    dense = lambda d: (np.swapaxes(np.asarray(d["kernel"]), -1, -2), np.asarray(d["bias"]))
     layers = []
     for trunk in _TRUNKS:
         for i in range(len(p.get(trunk, {}))):

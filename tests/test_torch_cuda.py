@@ -104,6 +104,65 @@ def test_field_kernel_matches_plain(cuda, act, B, d, width, n_fourier, K):
         assert _rel_err(g, r) <= RTOL
 
 
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("S", [1, 3, 10])
+@pytest.mark.parametrize("B", [100, 1024])
+def test_field_kernel_seed_axis_matches_plain(cuda, S, B, act):
+    """K1 with a seed axis: S nets (weights and frequencies that differ by
+    seed) on S B seed-major rows and 64 tangents in one launch, bit for bit
+    against S single-seed launches (the same block body on the same rows),
+    and against the plain version seed by seed. With relu the tangents are
+    held to the plain version only through the single-seed launches: over
+    10 x 1024 rows some unit's z lies within the two summation orders'
+    rounding of 0 and takes the other side of the kink (act' 0 against 1);
+    tanh has no kink and holds every output to the plain version."""
+    d, width, n_fourier, K = 64, 128, 128, 64
+    nets = [_net(cuda, d, width, n_fourier, act, seed=s)[1] for s in range(S)]
+    stacked = {k: torch.stack([p[k] for p in nets]) for k in nets[0]}
+    layout = field.field_layout(nets[0], n_fourier)
+    packed = field.pack_field_params(stacked, layout)
+    assert packed.shape == (S, layout.size)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    freqs = torch.randn((S, n_fourier), generator=gen, device=cuda)
+    x = torch.randn((S * B, d), generator=gen, device=cuda)
+    t = torch.rand(S * B, generator=gen, device=cuda)
+    ex = torch.randn((K, S * B, d), generator=gen, device=cuda)
+    before = field.field_apply.launches
+    got = field.field_apply(packed, layout, act, freqs, x, t, ex)
+    torch.cuda.synchronize()
+    assert field.field_apply.launches == before + 1
+    ref = field.field_apply_plain(packed, layout, act, freqs, x, t, ex)
+    for g, r in zip(got if act == "tanh" else got[:2], ref):
+        assert g.shape == r.shape and _rel_err(g, r) <= RTOL
+    for s in range(S):
+        rows = slice(s * B, (s + 1) * B)
+        one = field.field_apply(packed[s].contiguous(), layout, act, freqs[s].contiguous(),
+                                x[rows], t[rows], ex[:, rows].contiguous())
+        for g, o in zip(got, one):
+            assert torch.equal(g[..., rows, :], o), s
+
+
+def test_seed_sweep_launches_k1_once_a_stage_for_all_seeds(cuda):
+    """``run_mfm_seeds`` on the fused field: three seeds make exactly the K1
+    launches of one seed's ``run_mfm`` (one a transport stage for all
+    seeds), and finite results."""
+    from mfm_tpu_torch.config import MFMConfig
+    from mfm_tpu_torch.drivers import run_mfm, run_mfm_seeds
+
+    cfg = MFMConfig(example="phi-four", dim=8, num_chain=64, hidden_x=(32, 32),
+                    hidden_t=(32, 32), hidden_xt=(32, 32), fourier_dim=8, ode_steps=3,
+                    mcmc_per_flow_steps=3.0, learning_iter=8, chunk_size=4, step_size=1e-3,
+                    field_precision="highest", pallas_field=True)
+    before = field.field_apply.launches
+    run = run_mfm(PhiFour(8), cfg, cuda)
+    one = field.field_apply.launches - before
+    sweep = run_mfm_seeds(PhiFour(8), cfg, [0, 1, 2], cuda)
+    assert field.field_apply.launches - before - one == one > 0
+    assert sweep.positions.shape == (3, 64, 8) and bool(torch.isfinite(sweep.positions).all())
+    assert all(v.shape == (3, 8) for v in sweep.metrics.values())
+    assert bool(torch.isfinite(run.chain.position).all())
+
+
 def test_field_kernel_refuses_what_it_cannot_run(cuda):
     _, params = _net(cuda, 4, 16, 8)
     layout = field.field_layout(params, 8)

@@ -29,7 +29,7 @@ import mfm_tpu_torch.targets as pt
 from mfm_tpu.ops import phi_four_log_lik
 from mfm_tpu_torch.config import preset
 from mfm_tpu_torch.ops import phi_four as K3
-from torch_parity import npy, tt
+from torch_parity import cli_run_dir, npy, tt  # noqa: F401
 
 torch.set_num_threads(1)
 

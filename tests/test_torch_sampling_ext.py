@@ -24,7 +24,7 @@ from mfm_tpu.flows import make_transport as j_make_transport
 from mfm_tpu_torch.drivers import mfm as pmfm
 from mfm_tpu_torch.flows import make_transport, module_tangent_field
 from mfm_tpu_torch.kernels import mala
-from torch_parity import flax_field, npy, torch_field, tt
+from torch_parity import cli_run_dir, flax_field, npy, torch_field, tt  # noqa: F401
 
 N = 64
 
@@ -208,7 +208,15 @@ def test_cli_defensive_row_is_the_flow_share(monkeypatch):
     (["--defensive-alpha", "1.5"], r"\(0, 1\]"),
     (["--defensive-alpha", "0.9", "--set", "ref_dist=flat"], "normalised"),
     (["--flow-smc", "2", "--do-fab"], "flow-smc"),
-], ids=["flow-smc", "move", "smc", "flowmc", "no-flow-draw", "range", "flat", "flow-smc-fab"])
+    (["--vmap-seeds", "--check"], "--check"),
+    (["--vmap-seeds", "--defensive-alpha", "0.9"], "defensive-alpha"),
+    (["--vmap-seeds", "--full-metrics"], "full-metrics"),
+    (["--vmap-seeds", "--move-correct", "5"], "move-correct"),
+    (["--vmap-seeds", "--flow-smc", "2"], "flow-smc"),
+    (["--vmap-seeds", "--do-dds"], "do-dds"),
+], ids=["flow-smc", "move", "smc", "flowmc", "no-flow-draw", "range", "flat", "flow-smc-fab",
+        "vmap-check", "vmap-defensive", "vmap-full-metrics", "vmap-move", "vmap-flow-smc",
+        "vmap-dds"])
 def test_cli_refuses_conflicts(argv, match):
     from mfm_tpu_torch import cli
 

@@ -50,18 +50,14 @@ from mfm_tpu_torch.drivers import evaluate_samples, sample_flow_parts
 from mfm_tpu_torch.drivers.mfm import (
     FMNoise,
     MalaNoise,
-    MFMCarry,
     RwmNoise,
     _interleave_is_flow,
     build_mfm,
 )
 from mfm_tpu_torch.flows import make_transport
-from mfm_tpu_torch.flows.train import AdamWFiniteState, TrainState
-from mfm_tpu_torch.adaptation.window import DualAveragingState, WelfordState
-from mfm_tpu_torch.kernels import ChainState
 from mfm_tpu_torch.kernels.hmc import HMCNoise
 from mfm_tpu_torch.utils.convert import params_from_flax
-from torch_parity import npy, nuts_noise, tt
+from torch_parity import cli_run_dir, npy, nuts_noise, port_mfm_carry as _port_carry, tt  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -98,31 +94,6 @@ def reference():
     row = j_eval(target, flow, exact)
     return dict(pieces=pieces, carry0=carry0, carry=carry, keys=keys, metrics=metrics,
                 skey=skey, flow=flow, exact=exact, logw=logw, row=row)
-
-
-def _port_carry(jcarry) -> MFMCarry:
-    c, tr = jcarry.chain, jcarry.train
-    opt = tr.opt_state
-    adapt = ()
-    if jcarry.da is not None:
-        adapt = (DualAveragingState(*(tt(v) for v in jcarry.da)),
-                 WelfordState(tt(jcarry.wf.mean), tt(jcarry.wf.m2), int(jcarry.wf.count)),
-                 tt(jcarry.inv_mass))
-    return MFMCarry(
-        ChainState(tt(c.position), tt(c.logdensity), tt(c.logdensity_grad)),
-        TrainState(
-            torch.tensor(int(tr.step), dtype=torch.int32),
-            params_from_flax(_tree_np(tr.params)),
-            AdamWFiniteState(
-                torch.tensor(int(opt.count), dtype=torch.int32),
-                torch.tensor(int(opt.notfinite_count), dtype=torch.int32),
-                params_from_flax(_tree_np(opt.mu)),
-                params_from_flax(_tree_np(opt.nu)),
-            ),
-        ),
-        tt(jcarry.beta),
-        *adapt,
-    )
 
 
 def _replayed_noise(key, count):
@@ -375,17 +346,44 @@ def test_port_imports_no_jax():
     (["--example", "pines", "--do-fab", "--move-correct", "10"], "move-correct"),
     (["--example", "4-mode", "--defensive-alpha", "0.5", "--do-dds"], "defensive-alpha"),
     (["--example", "4-mode", "--move-correct", "10", "--do-smc"], "move-correct"),
-    (["--example", "4-mode", "--vmap-seeds"], "not ported"),
     (["--example", "4-mode", "--plots"], "not ported"),
-    (["--example", "4-mode", "--full-metrics"], "not ported"),
-    (["--example", "4-mode", "--run-dir", "x"], "not ported"),
-    (["--example", "4-mode", "--wandb"], "not ported"),
 ])
 def test_cli_refuses_unported_paths(argv, match):
     from mfm_tpu_torch import cli
 
     with pytest.raises(SystemExit, match=match):
         cli.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--vmap-seeds", "--full-metrics", "--run-dir", "--wandb"])
+def test_cli_runs_the_logging_and_seed_flags(flag, tmp_path, monkeypatch, caplog):
+    """The flags the port once refused run on the CPU: each seed's JSONL
+    under --run-dir (chunk means, then the row as a summary), one record an
+    iteration more with --full-metrics, a one-seed sweep's row with
+    --vmap-seeds (seed 1; its training logs no chunk means), and --wandb without wandb installed warns and
+    keeps the JSONL."""
+    import json
+
+    from mfm_tpu_torch import cli
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # importing it fails
+    run_dir = tmp_path / "logs"
+    argv = {"--vmap-seeds": ["--vmap-seeds", "--seed", "1"], "--run-dir": [],
+            "--full-metrics": ["--full-metrics"], "--wandb": ["--wandb"]}[flag]
+    tiny = [a for a in _TINY if flag != "--vmap-seeds" or a not in ("--seed", "0")]
+    rows = cli.main(["--example", "4-mode", *tiny, "--run-dir", str(run_dir), *argv])
+    seed = 1 if flag == "--vmap-seeds" else 0
+    assert len(rows) == 1 and np.isfinite(rows[0]["logpdf"])
+    records = [json.loads(line) for line in
+               (run_dir / f"4-mode-seed{seed}.jsonl").read_text().splitlines()]
+    summaries = [r for r in records if r.get("_summary")]
+    assert len(summaries) == 1 and summaries[0]["logpdf"] == rows[0]["logpdf"]
+    per_iter = [r for r in records if "iter" in r and "_t" not in r]
+    chunks = [r for r in records if "_t" in r]
+    assert len(per_iter) == (8 if flag == "--full-metrics" else 0)
+    assert len(chunks) == (0 if flag == "--vmap-seeds" else 2)  # 8 iterations in chunks of 4
+    warned = "wandb requested but not installed" in caplog.text
+    assert warned == (flag == "--wandb")
 
 
 def test_unported_config_raises():

@@ -5,11 +5,25 @@ counterpart in ``mfm_tpu_torch``; arrays cross as numpy."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mfm_tpu.flows.vector_field import NON_LINEARITIES, VectorFieldNet as FlaxNet
+from mfm_tpu_torch.adaptation.window import DualAveragingState, WelfordState
+from mfm_tpu_torch.drivers.mfm import MFMCarry
 from mfm_tpu_torch.flows import VectorFieldNet, field_params
+from mfm_tpu_torch.flows.train import AdamWFiniteState, TrainState
+from mfm_tpu_torch.kernels import ChainState
 from mfm_tpu_torch.utils.convert import params_from_flax
+
+
+@pytest.fixture(autouse=True)
+def cli_run_dir(tmp_path, monkeypatch):
+    """Autouse where imported: the CLI's per-seed logs go to a temporary
+    --run-dir, not to runs/ in the working directory."""
+    from mfm_tpu_torch import cli
+
+    monkeypatch.setattr(cli, "RUN_DIR", str(tmp_path / "runs"))
 
 
 def tt(a) -> torch.Tensor:
@@ -123,3 +137,35 @@ def capture_chunked_scan(module, monkeypatch, run, *args, **kwargs):
         pass
     monkeypatch.undo()
     return seen["body"], seen["carry"], seen["keys"]
+
+
+def _tree_np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def port_mfm_carry(jcarry) -> MFMCarry:
+    """The port's ``MFMCarry`` of a reference ``MFMCarry``: one run's, or a
+    seed sweep's with every leaf stacked on a leading seed axis (the
+    Welford count, the same for every seed, stays one number)."""
+    c, tr = jcarry.chain, jcarry.train
+    opt = tr.opt_state
+    step = lambda v: tt(np.asarray(v)).to(torch.int32)
+    adapt = ()
+    if jcarry.da is not None:
+        count = int(np.asarray(jcarry.wf.count).reshape(-1)[0])
+        adapt = (DualAveragingState(*(tt(v) for v in jcarry.da)),
+                 WelfordState(tt(jcarry.wf.mean), tt(jcarry.wf.m2), count),
+                 tt(jcarry.inv_mass))
+    return MFMCarry(
+        ChainState(tt(c.position), tt(c.logdensity), tt(c.logdensity_grad)),
+        TrainState(
+            step(tr.step),
+            params_from_flax(_tree_np(tr.params)),
+            AdamWFiniteState(
+                step(opt.count), step(opt.notfinite_count),
+                params_from_flax(_tree_np(opt.mu)), params_from_flax(_tree_np(opt.nu)),
+            ),
+        ),
+        tt(jcarry.beta),
+        *adapt,
+    )

@@ -181,10 +181,11 @@ def main(names):
             meta = field.kernel_meta(layout, "relu")
             fn = ctypes.CDLL(str(so)).mfm_field_apply
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             out = [torch.empty_like(x), torch.empty_like(x), torch.empty((K, B, d), device=dev)]
             args = (packed.data_ptr(), ctypes.addressof(meta), freqs.data_ptr(), x.data_ptr(),
-                    t.data_ptr(), ex.data_ptr(), *(o.data_ptr() for o in out), B, k, stream)
+                    t.data_ptr(), ex.data_ptr(), *(o.data_ptr() for o in out), B, k, 1, layout.size,
+                    stream)
             if fn(*args) != 0:
                 raise SystemExit(f"field_variants: {name} did not launch")
             torch.cuda.synchronize()
