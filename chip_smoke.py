@@ -107,7 +107,28 @@ own; any failure exits non-zero before the final line:
 34. phi-four on the fused field, 60 iterations in chunks of 20 with a
    checkpoint each: run, delete the last checkpoint, run again (resumed at
    40) and hold parameters and chains to the first run's; a run at the
-   finished checkpoint returns no metrics.
+   finished checkpoint returns no metrics;
+35-40. the library, driven as Python calls on phi-four at its preset's
+   width (d=64, a perturbed fp32 field with trunks (128, 128) x 3, F=128,
+   24 RK4 steps, exact divergence, relu, no score gate): every move's
+   transport runs on K1, every loss (-log q_flow of the chains, a gradient
+   through the inverse transport) on the module field, every density and
+   score on K3. 35 ATESS cross-chain (256 chains, 10 steps, one Adam step
+   a refit), then one TESS step at its first angle with the fitted flow on
+   K1 and on the module field, on the same noise; 36 ATESS by parallel ECA
+   (4 batches of 64, 8 steps), then one more update in which the holding
+   batch must keep its chains bit for bit; 37 MSC (256 chains, 4 CIS
+   candidates: 1,280 rows a transport, 10 steps), then one CIS step's
+   log-weights on K1 against the module field; 38 MSC-MALA (256 chains, 4
+   MALA steps at 1e-4 a step, 10 steps); 39 SVGD (sgd) and coin-SVGD
+   (COCOB), 1,024 particles from phi-four's initial positions, 300 steps
+   each, with the KSD-U of each set and of the start (K2a); 40 TESS with
+   the identity flow on N(0, I) at d=64 (4,096 chains, 200 steps, the
+   pooled second half's moments), CIS with the identity flow on N(0.5,
+   0.25), SNPE-A's loss and gradient on 4,096 simulations, and the
+   profiling helpers around one TESS step. Each prints its host ms a step
+   (with the moves' transports apart), shrink trips or acceptance, peak
+   device memory and its launches.
 
 Every CLI phase logs under a temporary --run-dir. Phase 3 also holds K1's
 seed axis (S=10 nets on 10 x 1024 rows, 64 tangents, one launch) to its
@@ -311,14 +332,36 @@ def phase_kernels(torch, report):
     if not ms_t < plain_ms_t:
         fail("K1 with tangents is slower than its plain version")
     seeds = phase_k1_seeds(torch, gen, ms_t, tol_k1)
+    # the library's shapes (phases 35-38): the 256 chains of a move, the
+    # 1,280 candidates of a CIS step
+    library = {}
+    for B_lib in (256, 1280):
+        x_l = torch.randn((B_lib, d), generator=gen, device=dev)
+        t_l = torch.rand(B_lib, generator=gen, device=dev)
+        ex_l = torch.randn((K, B_lib, d), generator=gen, device=dev)
+        kern = lambda: field.field_apply(packed, layout, "relu", freqs, x_l, t_l, ex_l)
+        plain = lambda: field.field_apply_plain(packed, layout, "relu", freqs, x_l, t_l, ex_l)
+        err = max(errors(torch, a, b) for a, b in zip(kern(), plain()))
+        ms, plain_ms = cuda_ms(torch, kern, 20), cuda_ms(torch, plain, 20)
+        bnd, by = bound(field.field_flops(layout, B_lib, K), field.field_bytes(layout, B_lib, K))
+        print(f"[3 K1 tangents K={K} B={B_lib} d={d}, the library's shape] max abs {err[0]:.3e} "
+              f"rel {err[1]:.3e} (tol rel {tol_k1}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by}), share {bnd / ms:.3f}", flush=True)
+        if not err[1] <= tol_k1:
+            fail(f"K1 at B={B_lib} disagrees with its plain version")
+        library[f"B={B_lib}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                                     share_of_bound=bnd / ms, max_abs_err=err[0],
+                                     max_rel_err=err[1])
     report["field_apply"] = dict(
-        max_abs_err=max(err_p[0], err_t[0], seeds["max_abs_err"]),
-        max_rel_err=max(err_p[1], err_t[1], seeds["max_rel_err"]),
+        max_abs_err=max(err_p[0], err_t[0], seeds["max_abs_err"],
+                        *(v["max_abs_err"] for v in library.values())),
+        max_rel_err=max(err_p[1], err_t[1], seeds["max_rel_err"],
+                        *(v["max_rel_err"] for v in library.values())),
         ms=ms_t, plain_ms=plain_ms_t, bound_ms=bound_t, bound_by=by_t, library_ms=None,
         flops=flops, share_of_bound=bound_t / ms_t, bound_3xtf32_ms=bound_tc,
         primal_ms=ms_p, primal_plain_ms=plain_ms_p, primal_bound_ms=bound_p,
         shape=f"B={B} d={d} K={K} widths={W} F={F}",
-        seed_axis=seeds,
+        seed_axis=seeds, library_shapes=library,
     )
 
     phase_pairwise(torch, report, gen)
@@ -329,7 +372,8 @@ def phase_kernels(torch, report):
     # times are reported.
     tol_k3 = 1e-5
     k3 = {"max_abs_err": 0.0, "max_rel_err": 0.0}
-    for B3, D3, pbc, bc in ((1024, 64, False, 0.0), (1024, 64, True, 0.0), (37, 64, False, 0.5)):
+    for B3, D3, pbc, bc in ((1024, 64, False, 0.0), (1024, 64, True, 0.0), (37, 64, False, 0.5),
+                            (256, 64, False, 0.0), (1280, 64, False, 0.0)):  # the library's
         x = 1.5 * torch.randn((B3, D3), generator=gen, device=dev)
         args = (0.1, 20.0, pbc, bc)
         kern = lambda: phi_four.phi_four_value_and_score(x, *args)
@@ -983,6 +1027,380 @@ def phase_resume(torch, ckpt_dir):
     return max(diff, diff_x)
 
 
+# The library phases (35-40): chains, steps and particles (depth; the
+# widths and d are phi-four's preset: d=64, trunks (128, 128) x 3, F=128,
+# 24 RK4 steps, exact divergence, relu, fp32, no score gate)
+LIB = dict(d=64, width=128, fourier=128, chains=256, atess_steps=10, eca_batches=4,
+           eca_batch_size=64, eca_steps=8, msc_steps=10, cis_samples=4, mala_samples=4,
+           mala_step=1e-4, svgd_particles=1024, svgd_steps=300, tess_chains=4096,
+           tess_steps=200, cis_chains=512, snpe_sims=4096)
+
+
+class Counted:
+    """A batched density that counts its calls: a TESS step calls it
+    2 + (shrink loop trips) times."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, x):
+        self.calls += 1
+        return self.fn(x)
+
+
+def library_flows(torch, dev="cuda"):
+    """phi-four and one flow on two fields: the move's transport on K1, the
+    loss's on the module field (a gradient through a transport, which K1
+    refuses). The parameters are perturbed, so the flow is not the
+    identity."""
+    from mfm_tpu_torch.flows import kernel_tangent_field, make_transport, module_tangent_field
+    from mfm_tpu_torch.targets import PhiFour
+
+    net, params = perturbed_net(torch, LIB["d"], LIB["width"], LIB["fourier"], None, seed=3)
+    k_tr = make_transport(kernel_tangent_field(net), divergence="exact", n_steps=24)
+    m_tr = make_transport(module_tangent_field(net), divergence="exact", n_steps=24)
+
+    moves = dict(transports=0, secs=0.0)
+
+    def flow(u, p):  # the move, through K1; its host time, to the end of its launches
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = k_tr.forward(p, u)
+        torch.cuda.synchronize()
+        moves["transports"] += 1
+        moves["secs"] += time.perf_counter() - t0
+        return out
+
+    def module_flow(u, p):
+        with torch.no_grad():
+            return m_tr.forward(p, u)
+
+    def loss(p, positions):  # -log q_flow(positions) + const, through the module field
+        u, logdet = m_tr.inverse(p, positions)
+        return torch.mean(0.5 * torch.sum(u * u, dim=-1) + logdet)
+
+    return dict(target=PhiFour(LIB["d"]), params=params, flow=flow, module_flow=module_flow,
+                loss=loss, moves=moves)
+
+
+def split_time(lib, secs):
+    """How ``secs`` of a run split between the moves' K1 transports and the
+    rest (the refits' loss steps, the draws)."""
+    m = lib["moves"]
+    return (f"moves: {m['transports']} K1 transports in {m['secs']:.2f} s "
+            f"({1e3 * m['secs'] / max(m['transports'], 1):.1f} ms each), the rest (refits, "
+            f"draws) {secs - m['secs']:.2f} s")
+
+
+def finite(torch, *trees):
+    from torch.utils._pytree import tree_leaves
+
+    return all(bool(torch.isfinite(v).all()) for t in trees for v in tree_leaves(t)
+               if isinstance(v, torch.Tensor) and v.is_floating_point())
+
+
+def flow_agreement(torch, lib, p, u, k_values, m_values, label):
+    """K1 against the module field at the same pullback points ``u``: x to
+    1e-4 and logdet to 1e-3 absolute (phase 4's tolerances), and the
+    target-scored values built on them (TESS slice values, CIS log-weights)
+    to 1e-5 relative: phi-four's log-density is O(1e3-1e5) here, where one
+    fp32 ulp is already 1e-4-1e-2, so 1e-3 absolute cannot hold there."""
+    xk, ldk = lib["flow"](u, p)
+    xm, ldm = lib["module_flow"](u, p)
+    ex, eld = errors(torch, xk, xm)[0], errors(torch, ldk, ldm)[0]
+    same_inf = torch.equal(torch.isinf(k_values), torch.isinf(m_values))
+    fin = torch.isfinite(m_values)
+    ev_abs, ev_rel = errors(torch, k_values[fin], m_values[fin])
+    print(f"[{label} K1 vs module] max abs x {ex:.3e} (tol 1e-4), logdet {eld:.3e} (tol 1e-3); "
+          f"values max abs {ev_abs:.3e}, rel {ev_rel:.3e} (tol rel 1e-5) at |value| up to "
+          f"{float(m_values[fin].abs().max()):.1f}", flush=True)
+    if not (ex <= 1e-4 and eld <= 1e-3 and ev_rel <= 1e-5 and same_inf):
+        fail(f"{label}: the K1 flow disagrees with the module-field flow")
+
+
+def library_phase(torch, counters, label, must, fn):
+    """Run one library phase: its kernels' launches, peak device memory and
+    wall; it fails if it launched none of a kernel it names."""
+    before = [f.launches for f in counters]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {f.__name__: f.launches - b for f, b in zip(counters, before)}
+    print(f"[{label.split()[0]} launches] " + " ".join(f"{k}={v}" for k, v in n.items())
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall {wall:.1f} s",
+          flush=True)
+    missing = [k for k in must if not n[k]]
+    if missing:
+        fail(f"{label}: launched no {', '.join(missing)}")
+    return dict(launches=n, wall=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                result=result)
+
+
+def phase_atess(torch, lib, dev="cuda"):
+    """35: ATESS cross-chain on phi-four; then one TESS step at its first
+    angle with the fitted flow on K1 and on the module field."""
+    from mfm_tpu_torch.adaptation import atess
+    from mfm_tpu_torch.flows import adam
+    from mfm_tpu_torch.kernels import tess
+
+    B, d, steps = LIB["chains"], LIB["d"], LIB["atess_steps"]
+    gen = torch.Generator(device=dev).manual_seed(35)
+    logp = Counted(lib["target"].log_prob)
+    algo = atess(logp, adam(1e-3), lib["params"], lib["flow"], lib["loss"], 1, B,
+                 num_steps=steps)
+    t0 = time.perf_counter()
+    state, kernel_fn, fitted = algo.run(gen, torch.randn((B, d), generator=gen, device=dev))
+    secs = time.perf_counter() - t0
+    trips = logp.calls / steps - 2
+    split = split_time(lib, secs)
+    new, info = kernel_fn(gen, state.states)  # the refitted kernel moves once more
+    print(f"[35 atess cross-chain] {B} chains, {steps} steps, adam(1e-3), 1 loss step each: "
+          f"{1e3 * secs / steps:.1f} host ms a step ({split}); {trips:.1f} shrink loop trips a step; "
+          f"the refitted kernel's step: mean subiter {float(info.subiter.float().mean()):.2f}, "
+          f"max {int(info.subiter.max())}", flush=True)
+    if not finite(torch, state.states, fitted, new):
+        fail("35: non-finite chains or parameters")
+    noise = tess.draw_noise(gen, B, d, 0)
+    first = tess.build_kernel(max_subiter=0)  # no shrinking: the slice at the first angle
+    sk, ik = first(state.states, lib["target"].log_prob, lambda u: lib["flow"](u, fitted), noise)
+    sm, im = first(state.states, lib["target"].log_prob,
+                   lambda u: lib["module_flow"](u, fitted), noise)
+    flow_agreement(torch, lib, fitted, sk.pullback_position, ik.slice_value, im.slice_value,
+                   "35 first-angle slice")
+    return dict(ms=1e3 * secs / steps, trips=trips)
+
+
+def phase_atess_eca(torch, lib, dev="cuda"):
+    """36: ATESS by parallel ECA; then one more update, in which the holding
+    batch (step % num_batch) must keep its chains bit for bit."""
+    from mfm_tpu_torch.adaptation import atess
+    from mfm_tpu_torch.adaptation.atess import base
+    from mfm_tpu_torch.flows import adam
+    from mfm_tpu_torch.kernels import tess
+
+    nb, bs, d, steps = LIB["eca_batches"], LIB["eca_batch_size"], LIB["d"], LIB["eca_steps"]
+    gen = torch.Generator(device=dev).manual_seed(36)
+    logp = Counted(lib["target"].log_prob)
+    algo = atess(logp, adam(1e-3), lib["params"], lib["flow"], lib["loss"], nb, bs,
+                 num_steps=steps, eca=True)
+    t0 = time.perf_counter()
+    state, kernel_fn, params = algo.run(gen, torch.randn((nb, bs, d), generator=gen, device=dev))
+    secs = time.perf_counter() - t0
+    moves = steps * (nb - 1)
+    trips = logp.calls / moves - 2
+    split = split_time(lib, secs)
+    kernel = tess.build_kernel()
+
+    def kernel_factory(p, opt_state):
+        return lambda noise, s: kernel(s, lib["target"].log_prob,
+                                       lambda u: lib["flow"](u, p), noise)
+
+    _, update, _ = base(kernel_factory, adam(1e-3), lib["loss"], nb, bs, n_opt_iter=1, eca=True)
+    after, _, _ = update(gen, state, *params)
+    holder = state.step % nb
+    kept = torch.equal(after.states.position[holder], state.states.position[holder])
+    moved = [b for b in range(nb) if b != holder
+             and not torch.equal(after.states.position[b], state.states.position[b])]
+    print(f"[36 atess eca] {nb} batches x {bs} chains, {steps} steps: {1e3 * secs / steps:.1f} "
+          f"host ms a step ({nb} refits, {nb - 1} moves; {split}); {trips:.1f} shrink loop trips "
+          f"a move; "
+          f"step {state.step}: holding batch {holder} kept its chains bit for bit: {kept}, "
+          f"batches moved {moved}", flush=True)
+    if kernel_fn is not None or not finite(torch, state.states, params, after.states):
+        fail("36: a kernel under eca, or non-finite chains or parameters")
+    if not (kept and len(moved) == nb - 1):
+        fail("36: the holding batch moved, or another batch did not")
+    return dict(ms=1e3 * secs / steps, trips=trips)
+
+
+def cis_acceptance(torch, infos, final_pullback):
+    """The share of chains that took a fresh candidate, from each step's
+    current point (candidate 0) and the next step's."""
+    cur = infos.pullback_positions[:, :, 0]  # (steps, B, d)
+    nxt = torch.cat([cur[1:], final_pullback[None]], dim=0)
+    return float((cur != nxt).any(-1).float().mean())
+
+
+def phase_msc(torch, lib, dev="cuda"):
+    """37: MSC (CIS through K1, B (N+1) rows a transport); then one CIS step
+    with the fitted flow on K1 and on the module field, on the same noise."""
+    from mfm_tpu_torch.adaptation import msc
+    from mfm_tpu_torch.flows import adam
+    from mfm_tpu_torch.kernels import cis
+
+    B, d, N, steps = LIB["chains"], LIB["d"], LIB["cis_samples"], LIB["msc_steps"]
+    gen = torch.Generator(device=dev).manual_seed(37)
+    algo = msc(lib["target"].log_prob, adam(1e-3), lib["params"], lib["flow"], lib["loss"], B,
+               num_steps=steps, num_importance_samples=N)
+    t0 = time.perf_counter()
+    state, kernel_fn, fitted, infos = algo.run(gen, torch.randn((B, d), generator=gen,
+                                                                device=dev))
+    secs = time.perf_counter() - t0
+    acc = cis_acceptance(torch, infos, state.states.pullback_position)
+    print(f"[37 msc] {B} chains, {N} candidates ({B * (N + 1)} rows a transport), {steps} steps: "
+          f"{1e3 * secs / steps:.1f} host ms a step ({split_time(lib, secs)}); CIS acceptance "
+          f"{acc:.4f}", flush=True)
+    if not finite(torch, state.states, fitted) or infos.log_weights.isnan().any():
+        fail("37: non-finite chains, parameters or a NaN log-weight")
+    noise = cis.draw_noise(gen, B, N, d)
+    kernel = cis.build_kernel(N)
+    sk, ik = kernel(state.states, lib["target"].log_prob, lambda u: lib["flow"](u, fitted), noise)
+    sm, im = kernel(state.states, lib["target"].log_prob,
+                    lambda u: lib["module_flow"](u, fitted), noise)
+    flow_agreement(torch, lib, fitted, ik.pullback_positions.reshape(-1, d),
+                   ik.log_weights.reshape(-1), im.log_weights.reshape(-1), "37 CIS log-weights")
+    return dict(ms=1e3 * secs / steps, acceptance=acc)
+
+
+def phase_msc_mala(torch, lib, dev="cuda"):
+    """38: MSC-MALA: a K1 transport of fresh draws, then MALA steps on K3."""
+    from mfm_tpu_torch.adaptation import msc_mala
+    from mfm_tpu_torch.flows import adam
+
+    B, steps, n = LIB["chains"], LIB["msc_steps"], LIB["mala_samples"]
+    target = lib["target"]
+    gen = torch.Generator(device=dev).manual_seed(38)
+    algo = msc_mala(target.value_and_score, adam(1e-3), lib["params"], lib["flow"], lib["loss"],
+                    B, LIB["mala_step"], num_steps=steps, num_mala_samples=n)
+    t0 = time.perf_counter()
+    state, kernel_fn, fitted, infos = algo.run(gen, target.init_positions(gen, B))
+    secs = time.perf_counter() - t0
+    acc = float(infos.acceptance_rate.mean())
+    print(f"[38 msc-mala] {B} chains, {n} MALA steps a step at {LIB['mala_step']}, {steps} steps: "
+          f"{1e3 * secs / steps:.1f} host ms a step ({split_time(lib, secs)}); MALA acceptance "
+          f"{acc:.4f}", flush=True)
+    if not finite(torch, state.states, fitted):
+        fail("38: non-finite chains or parameters")
+    return dict(ms=1e3 * secs / steps, acceptance=acc)
+
+
+def phase_svgd(torch, lib, dev="cuda"):
+    """39: SVGD (sgd) and coin-SVGD (COCOB) on phi-four from its initial
+    positions; the KSD-U of each particle set and of the start (K2a)."""
+    from mfm_tpu_torch.drivers.eval import evaluate_samples
+    from mfm_tpu_torch.flows import sgd
+    from mfm_tpu_torch.vi import coin_svgd, svgd
+
+    target, N, steps = lib["target"], LIB["svgd_particles"], LIB["svgd_steps"]
+    gen = torch.Generator(device=dev).manual_seed(39)
+    x0 = target.init_positions(gen, N)
+    out = {}
+    for name, algo in (("svgd sgd(1e-3)", svgd(target.score, sgd(1e-3))),
+                       ("coin-svgd", coin_svgd(target.score))):
+        state = algo.init(x0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = algo.step(state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        m = evaluate_samples(target, state.particles, x0)
+        print(f"[39 {name}] {N} particles, {steps} steps: {1e3 * secs / steps:.2f} host ms a step; "
+              f"KSD-U {m['stein_u']:.6g} (initial positions {m['stein_u_star']:.6g}), logpdf "
+              f"{m['logpdf']:.6g} ({m['logpdf_star']:.6g}); length scale "
+              f"{float(state.kernel_parameters['length_scale']):.6g}", flush=True)
+        if not (finite(torch, state.particles) and math.isfinite(m["stein_u"])):
+            fail(f"39 {name}: non-finite particles or KSD")
+        out[name] = dict(ms=1e3 * secs / steps, ksd_u=m["stein_u"], ksd_u_initial=m["stein_u_star"])
+    return out
+
+
+def phase_library_checks(torch, trace_dir, dev="cuda"):
+    """40: TESS invariance and CIS with the identity flow on the card, as the
+    reference's tests ask; SNPE-A's loss and gradient; the profiling
+    helpers around one TESS step."""
+    import os
+
+    from mfm_tpu_torch.kernels import cis, tess
+    from mfm_tpu_torch.sbi import SNPE_A
+    from mfm_tpu_torch.targets import IndepGaussian
+    from mfm_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    identity = lambda u: (u, torch.zeros(u.shape[:1], device=u.device))
+    B, d, steps = LIB["tess_chains"], LIB["d"], LIB["tess_steps"]
+    target = IndepGaussian(d)
+    kernel = tess.build_kernel()
+    state = tess.init(torch.randn((B, d), generator=gen, device=dev))
+    pool, trips = [], []
+    t0 = time.perf_counter()
+    for k in range(steps):
+        state, info = kernel(state, target.log_prob, identity, gen)
+        trips.append(info.subiter)
+        if k >= steps // 2:
+            pool.append(state.position)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pool = torch.cat(pool)
+    mean_err = float(pool.mean(0).abs().max())
+    var_err = float((pool.var(0, correction=0) - 1.0).abs().max())
+    print(f"[40 tess invariance] N(0, I) at d={d}, {B} chains, {steps} steps: "
+          f"{1e3 * secs / steps:.2f} host ms a step, mean subiter "
+          f"{float(torch.stack(trips).float().mean()):.2f}; pooled second half: max |mean| "
+          f"{mean_err:.4f} (tol 0.05), max |var - 1| {var_err:.4f} (tol 0.1)", flush=True)
+    if not (mean_err <= 0.05 and var_err <= 0.1):
+        fail("40: TESS with the identity flow does not keep N(0, I)")
+
+    target1 = IndepGaussian(1, mean=0.5, var=0.25)
+    ck = cis.build_kernel(32)
+    cstate = cis.init(torch.randn((LIB["cis_chains"], 1), generator=gen, device=dev))
+    cpool = []
+    for k in range(50):
+        cstate, _ = ck(cstate, target1.log_prob, identity, gen)
+        if k >= 25:
+            cpool.append(cstate.position)
+    cpool = torch.cat(cpool)
+    cm, cv = float(cpool.mean()), float(cpool.var(correction=0))
+    print(f"[40 cis] N(0.5, 0.25), {LIB['cis_chains']} chains, 32 candidates, 50 steps: pooled "
+          f"mean {cm:.4f} (0.5 within 0.03), var {cv:.4f} (0.25 within 10 %)", flush=True)
+    if not (abs(cm - 0.5) <= 0.03 and abs(cv - 0.25) <= 0.025):
+        fail("40: CIS with the identity flow does not sample N(0.5, 0.25)")
+
+    n = LIB["snpe_sims"]
+    prior = lambda g, m: torch.randn((m, 2), generator=g, device=g.device)
+    lik = lambda g, theta: theta + 0.1 * torch.randn(theta.shape, generator=g, device=g.device)
+    logq = lambda p, theta, data: -0.5 * torch.sum((data - theta - p) ** 2, dim=-1)
+    loss = SNPE_A(logq, 1, lik, prior).get_loss_function(gen, n)
+    p = torch.zeros(2, device=dev, requires_grad=True)
+    val = loss(p)
+    (grad,) = torch.autograd.grad(val, p)
+    print(f"[40 snpe-a] {n} simulations: loss {float(val.detach()):.6g}, gradient "
+          f"{[round(float(g), 6) for g in grad]}", flush=True)
+    if not (bool(torch.isfinite(val)) and bool(torch.isfinite(grad).all())):
+        fail("40: SNPE-A's loss or gradient is not finite")
+
+    step = lambda s: kernel(s, target.log_prob, identity, gen)
+    secs, _ = profiling.timed(step, state, repeats=3)
+    with profiling.trace(trace_dir, device=dev) as prof:
+        step(state)
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    print(f"[40 profiling] timed: {1e3 * secs:.2f} ms a TESS step ({B} chains); trace: "
+          f"{len(events)} kinds of event, {device_us / 1e3:.3f} ms of device time, "
+          f"trace.json {os.path.getsize(os.path.join(trace_dir, 'trace.json'))} bytes",
+          flush=True)
+
+
+def phase_library(torch, counters, tmp):
+    """Phases 35-40: the library on phi-four at its preset's width."""
+    K1, K2A, _, K3, _ = (f.__name__ for f in counters)
+    lib = library_flows(torch)
+    out = {}
+    for label, must, fn in (
+            ("35 atess", (K1, K3), lambda: phase_atess(torch, lib)),
+            ("36 atess eca", (K1, K3), lambda: phase_atess_eca(torch, lib)),
+            ("37 msc", (K1, K3), lambda: phase_msc(torch, lib)),
+            ("38 msc-mala", (K1, K3), lambda: phase_msc_mala(torch, lib)),
+            ("39 svgd", (K3, K2A), lambda: phase_svgd(torch, lib)),
+            ("40 library checks", (), lambda: phase_library_checks(torch, f"{tmp}/trace"))):
+        lib["moves"].update(transports=0, secs=0.0)
+        out[label] = library_phase(torch, counters, label, must, fn)
+    return out
+
+
 def main():
     try:
         import torch
@@ -1097,6 +1515,7 @@ def main():
         print("[33-34 launches] " + " ".join(f"{k}={v}" for k, v in n.items()), flush=True)
         if not (n[K1] and n[K2A] and n[K2B]):
             fail("the equality and resume checks launched no K1, K2a or K2b")
+        phase_library(torch, counters, tmp)
     report["field_apply"]["seed_axis"]["sweep_launches_per_iteration"] = sweeps[
         "31 phi-four fused field seeds"]["launches_per_it"][K1]
     launches = {f.__name__: f.launches for f in counters}

@@ -8,13 +8,20 @@ reference every module here is tested against. The package keeps
 - ``targets``      unnormalised target densities (4-mode, 16-mode, phi-four)
                    and the flow references (Gaussian, bimodal, flat, phi^4)
 - ``kernels``      the ensemble MALA, HMC and NUTS kernels and their
-                   accept/reject algebra
-- ``adaptation``   dual averaging and the Welford mass (window adaptation)
+                   accept/reject algebra, the transport slice sampler
+                   (TESS), conditional importance sampling (CIS), the
+                   sampler protocol and ``inference_loop``
+- ``adaptation``   dual averaging and the Welford mass (window adaptation);
+                   cross-chain and ensemble-chain adaptation, the optimizer
+                   loop, and the ATESS, MSC and MSC-MALA warmups
+- ``optimizers``   COCOB, the parameter-free coin-betting optimizer
+- ``vi``           SVGD and coin-SVGD
+- ``sbi``          a simulator and SNPE-A
 - ``smc``          adaptive tempered and waste-free SMC: resampling, ESS,
                    the root solvers
 - ``flows``        the CNF vector field, ODE transport, flow-matching loss,
-                   the hand-written AdamW and optax's Adam, global-norm
-                   clip and chain, the flow kernels, the latent pullback
+                   the hand-written AdamW and optax's Adam, SGD,
+                   global-norm clip and chain, the flow kernels, the latent pullback
                    target, and the coupling flows (real-NVP, RQ spline)
 - ``ops``          the CUDA kernels (fused field apply, pairwise Stein/RBF
                    sums, phi^4 value and score), each with its plain
@@ -26,7 +33,8 @@ reference every module here is tested against. The package keeps
                    ``baselines.run_baseline``, final sampling (IS, the MALA
                    move correction, the defensive mixture) and evaluation
 - ``utils``        flax -> torch parameter conversion (vector fields,
-                   coupling flows, the Cox target's state)
+                   coupling flows, the Cox target's state), checkpoints,
+                   the run logger, and the profiling helpers
 
 It imports ``torch`` and never ``jax``. Randomness is injected: every
 stochastic leaf function takes its noise as tensors, and the drivers draw

@@ -9,6 +9,11 @@ from mfm_tpu_torch.adaptation.window import (
     welford_variance,
     window_adaptation,
 )
+from mfm_tpu_torch.adaptation.chain_adaptation import AdaptState, cross_chain, parallel_eca
+from mfm_tpu_torch.adaptation.optimize import optimize
+from mfm_tpu_torch.adaptation.atess import atess
+from mfm_tpu_torch.adaptation.msc import msc
+from mfm_tpu_torch.adaptation.msc_mala import msc_mala
 
 __all__ = [
     "DualAveragingState",
@@ -20,4 +25,11 @@ __all__ = [
     "welford_update_batch",
     "welford_variance",
     "window_adaptation",
+    "AdaptState",
+    "cross_chain",
+    "parallel_eca",
+    "optimize",
+    "atess",
+    "msc",
+    "msc_mala",
 ]

@@ -13,7 +13,8 @@ different update. Semantically it is optax's
   row the NaN is let through so the blow-up surfaces.
 
 ``adam``, ``clip_by_global_norm`` and ``chain`` are optax's, as FAB,
-flowMC and DDS use them: Adam is ``mu_hat / (sqrt(nu_hat) + eps)`` with the
+flowMC and DDS use them; ``sgd`` is optax's without momentum, as SVGD's
+callers use it. Adam is ``mu_hat / (sqrt(nu_hat) + eps)`` with the
 schedule read at the pre-increment count; a zeroed gradient (a step the
 caller skipped) is still an update, so the moments decay and the count
 advances, as in the reference.
@@ -25,6 +26,7 @@ Everything is tensor arithmetic (no host round trip); parameters are a
 from typing import Callable, Dict, NamedTuple
 
 import torch
+from torch.utils._pytree import tree_map
 
 
 class TrainState(NamedTuple):
@@ -183,6 +185,16 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
     return GradientTransformation(init_fn, update_fn)
 
 
+def sgd(learning_rate: float) -> GradientTransformation:
+    """``optax.sgd`` without momentum: the update is ``-learning_rate * g``;
+    parameters a tensor or a dict of tensors."""
+
+    def update_fn(grads, state, params=None):
+        return tree_map(lambda g: -learning_rate * g, grads), state
+
+    return GradientTransformation(lambda params: (), update_fn)
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """``optax.clip_by_global_norm``: scale every update by max_norm / norm
     when the global norm reaches max_norm."""
@@ -211,5 +223,8 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init_fn, update_fn)
 
 
-def apply_updates(params: dict, updates: dict) -> dict:
+def apply_updates(params, updates):
+    """``params + updates`` for a tensor or a dict of tensors."""
+    if isinstance(params, torch.Tensor):
+        return params + updates
     return {k: p + updates[k] for k, p in params.items()}

@@ -1,4 +1,22 @@
-from mfm_tpu_torch.kernels import hmc, mala, nuts, proposal
-from mfm_tpu_torch.kernels.base import ChainInfo, ChainState
+from mfm_tpu_torch.kernels.base import (
+    AdaptationAlgorithm,
+    ChainInfo,
+    ChainState,
+    SamplingAlgorithm,
+    inference_loop,
+)
+from mfm_tpu_torch.kernels import cis, hmc, mala, nuts, proposal, tess
 
-__all__ = ["ChainInfo", "ChainState", "hmc", "mala", "nuts", "proposal"]
+__all__ = [
+    "AdaptationAlgorithm",
+    "ChainInfo",
+    "ChainState",
+    "SamplingAlgorithm",
+    "inference_loop",
+    "cis",
+    "hmc",
+    "mala",
+    "nuts",
+    "proposal",
+    "tess",
+]

@@ -203,6 +203,54 @@ def test_kernel_transport_matches_module_transport(cuda):
         assert float((a - b).abs().max()) <= 1e-4
 
 
+def _flow_pair(cuda, d=8):
+    """One flow on K1 and on the module field (no score gate), forward only."""
+    net, params = _net(cuda, d, 32, 16, seed=4)
+    flows = []
+    for bind in (kernel_tangent_field(net), module_tangent_field(net)):
+        tr = make_transport(bind, divergence="exact", n_steps=4)
+        flows.append(lambda u, tr=tr: tr.forward(params, u))
+    return flows
+
+
+@torch.no_grad()
+def test_tess_step_on_k1_matches_the_module_field(cuda):
+    """One TESS step (kernels/tess.py) through K1 and through the module
+    field on the same noise: the same shrink counts; positions to 1e-4
+    (16 stage evaluations in fp32), slice values to 1e-4 absolute at
+    |value| ~ 10."""
+    from mfm_tpu_torch.kernels import tess
+    from mfm_tpu_torch.targets import IndepGaussian
+
+    target = IndepGaussian(8, mean=0.5, var=0.5)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    state = tess.init(torch.randn((256, 8), generator=gen, device=cuda))
+    noise = tess.draw_noise(gen, 256, 8)
+    kernel = tess.build_kernel()
+    (sk, ik), (sm, im) = (kernel(state, target.log_prob, f, noise) for f in _flow_pair(cuda))
+    assert torch.equal(ik.subiter, im.subiter) and int(ik.subiter.max()) >= 2
+    assert float((sk.position - sm.position).abs().max()) <= 1e-4
+    assert float((ik.slice_value - im.slice_value).abs().max()) <= 1e-4
+
+
+@torch.no_grad()
+def test_cis_step_on_k1_matches_the_module_field(cuda):
+    """One CIS step (kernels/cis.py), 4 candidates a chain in one 1280-row
+    transport, through K1 and through the module field: the same picks,
+    log-weights to 1e-4 absolute."""
+    from mfm_tpu_torch.kernels import cis
+    from mfm_tpu_torch.targets import IndepGaussian
+
+    target = IndepGaussian(8, mean=0.5, var=0.5)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    state = cis.init(torch.randn((256, 8), generator=gen, device=cuda))
+    noise = cis.draw_noise(gen, 256, 4, 8)
+    kernel = cis.build_kernel(4)
+    (sk, ik), (sm, im) = (kernel(state, target.log_prob, f, noise) for f in _flow_pair(cuda))
+    assert torch.equal(sk.pullback_position, sm.pullback_position)
+    assert float((ik.log_weights - im.log_weights).abs().max()) <= 1e-4
+
+
 WIDE = pairwise.GRAM_MIN_D  # from this d on the Stein sum takes the tensor cores
 
 
