@@ -24,8 +24,10 @@ own; any failure exits non-zero before the final line:
    no slower than before their redesign); K3 (value and score) at
    (1024, 64) Dirichlet, (1024, 64) periodic and (37, 64) with the ends at
    0.5, and K3 through PhiFour.value_and_score; the phi-four score gate
-   with 64 tangents at (1024, 64) Dirichlet, periodic, tilted, and clipped
-   at (37, 64), timed with its inputs cold in the L2 (and warm) and its
+   with 64 tangents at (1024, 64) Dirichlet, periodic, tilted, clipped
+   at (37, 64), and at (256, 2048) Dirichlet (rows wider than 1024 sites
+   take its one-warp-a-row kernel), timed with its inputs cold in the L2
+   (and warm) and its
    launches queued behind a spin (device time, not host dispatch); errors
    and CUDA-event times of kernel and plain version, and each kernel's
    bound (the larger of its operations over the card's peak rate and its
@@ -129,6 +131,23 @@ own; any failure exits non-zero before the final line:
    profiling helpers around one TESS step. Each prints its host ms a step
    (with the moves' transports apart), shrink trips or acceptance, peak
    device memory and its launches.
+41. the roofline (``mfm_tpu_torch.diagnostics.roofline``): FLOPs and bytes
+   of one call counted (the aten ops by flop_counter, the kernels by the
+   hand counts their wrappers report), the median of three calls timed,
+   and both set against the H100's ceilings, for ensemble MALA on pines'
+   Cox target (128 chains, 400 steps), one Hutchinson transport at pines'
+   widths (128 rows), the Stein discrepancy of 12,800 4-mode draws on K2a,
+   and one exact transport of phi-four on K1 and the fused score gate
+   (1,024 rows); each kernel's count must equal its hand count times its
+   launches;
+42. a 4-mode run at phase 8's configuration and depth, its forward
+   transport at the progression figure's five times (t=0 is u, t=1 the
+   forward map, 1e-5), then the figures: rendered and counted where
+   matplotlib imports, else ``--plots`` refused by name before training;
+43. ``python -m mfm_tpu_torch.parallel.run_seeds`` as two processes on the
+   card (gloo for the rows; 2 seeds, 20 iterations): one aggregate on both,
+   equal within 1e-2 to the same seeds run one after another here (the
+   metric columns), under a time limit of its own that kills the children.
 
 Every CLI phase logs under a temporary --run-dir. Phase 3 also holds K1's
 seed axis (S=10 nets on 10 x 1024 rows, 64 tangents, one launch) to its
@@ -152,6 +171,7 @@ package beside this file, it exits non-zero and prints no result.
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -159,17 +179,19 @@ import sys
 import time
 
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, TF32 in them
-# (dense), HBM3. Every bound below is the larger of operations / peak and
-# bytes / memory rate, for this run's shapes.
-FP32_PEAK = 67e12
-TF32_PEAK = 495e12
-HBM_RATE = 3.35e12
+def ceilings():
+    """The H100 SXM data sheet's rates (``mfm_tpu_torch.diagnostics.roofline``,
+    the repository's one table): fp32 outside the tensor cores, TF32 and
+    bf16 in them (dense), HBM3. Every bound below is the larger of
+    operations / peak and bytes / memory rate, for this run's shapes."""
+    from mfm_tpu_torch.diagnostics.roofline import H100
+
+    return H100
 
 
-def bound(flops, nbytes, peak=FP32_PEAK):
+def bound(flops, nbytes, peak="fp32"):
     """(bound_ms, bound_by) of ``flops`` operations moving ``nbytes``."""
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    ops_ms, bytes_ms = flops / ceilings()[peak] * 1e3, nbytes / ceilings()["hbm"] * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -319,14 +341,15 @@ def phase_kernels(torch, report):
     ms_t, plain_ms_t = min(ms_a, ms_b), min(plain_a, plain_b)
     flops, nbytes = field.field_flops(layout, B, K), field.field_bytes(layout, B, K)
     bound_t, by_t = bound(flops, nbytes)
-    bound_tc = bound(3 * flops, nbytes, TF32_PEAK)[0]
+    bound_tc = bound(3 * flops, nbytes, "tf32")[0]
     print(f"[3 K1 tangents K={K} B={B} d={d}] max abs {err_t[0]:.3e} rel {err_t[1]:.3e} "
           f"(tol rel {tol_k1}); kernel {ms_t:.4f} ms, plain {plain_ms_t:.4f} ms "
           f"(kernel {ms_a:.4f} / {ms_b:.4f}, plain {plain_a:.4f} / {plain_b:.4f})", flush=True)
     print(f"[3 K1 work K={K}] {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB: "
           f"{flops / ms_t / 1e9:.1f} TFLOP/s; bound {bound_t:.4f} ms at the fp32 FMA peak "
           f"({by_t}), share {bound_t / ms_t:.3f}; 3xTF32 bound {bound_tc:.4f} ms, share "
-          f"{bound_tc / ms_t:.3f}; bytes alone {nbytes / HBM_RATE * 1e3:.4f} ms", flush=True)
+          f"{bound_tc / ms_t:.3f}; bytes alone {nbytes / ceilings()['hbm'] * 1e3:.4f} ms",
+          flush=True)
     if not err_t[1] <= tol_k1:
         fail("K1 with tangents disagrees with its plain version")
     if not ms_t < plain_ms_t:
@@ -383,9 +406,7 @@ def phase_kernels(torch, report):
         torch.cuda.synchronize()
         err = max(errors(torch, v_k, v_p), errors(torch, s_k, s_p))
         ms, plain_ms = cuda_ms(torch, kern, 50), cuda_ms(torch, plain, 50)
-        # ~16 operations a site for the value and the score; x read once,
-        # the value and the score written once
-        bnd, by = bound(16 * B3 * D3, 4 * (2 * B3 * D3 + B3))
+        bnd, by = bound(*phi_four.phi_four_cost(B3, D3))
         print(f"[3 K3 B={B3} d={D3} {'pbc' if pbc else f'dirichlet {bc}'}] max abs {err[0]:.3e} "
               f"rel {err[1]:.3e} (tol rel {tol_k3}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bnd:.6f} ms ({by})", flush=True)
@@ -463,20 +484,21 @@ def sm_clock_hz():
     return float(out) * 1e6
 
 
-def pair_bound(torch, pairs, flops_per_pair, nbytes):
+def pair_bound(torch, pairs, flops, nbytes):
     """The bound of a pairwise sum over ``pairs`` pairs that any
-    implementation must visit: the largest of its bytes over the memory
-    rate, one special-function operation a pair over that pipe's rate, and
-    its multiply-adds over the fp32 FMA peak. Beside it, what three TF32
-    passes on the tensor cores would need (fp32's accuracy too): the floor
-    of the Gram route, which may yet come in under the fp32 bound."""
+    implementation must visit (``ops.pairwise.stein_cost``, ``rbf_cost``):
+    the largest of its bytes over the memory rate, one special-function
+    operation a pair over that pipe's rate, and its multiply-adds over the
+    fp32 FMA peak. Beside it, what three TF32 passes on the tensor cores
+    would need (fp32's accuracy too): the floor of the Gram route, which
+    may yet come in under the fp32 bound."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    flops = pairs * flops_per_pair
+    peak = ceilings()
     parts = {
-        "bytes": nbytes / HBM_RATE * 1e3,
+        "bytes": nbytes / peak["hbm"] * 1e3,
         "special-function": pairs / (SFU_PER_CLOCK_SM * n_sm * sm_clock_hz()) * 1e3,
-        "fp32": flops / FP32_PEAK * 1e3,
-        "3xtf32": 3 * flops / TF32_PEAK * 1e3,
+        "fp32": flops / peak["fp32"] * 1e3,
+        "3xtf32": 3 * flops / peak["tf32"] * 1e3,
     }
     pipe = max(("bytes", "special-function", "fp32"), key=parts.get)
     return dict(bound_ms=parts[pipe], bound_by="bytes" if pipe == "bytes" else "operations",
@@ -593,9 +615,7 @@ def phase_pairwise(torch, report, gen):
             # the route's bound between the queued launches
             named = lambda: pairwise.stein_pairwise_sum(X, S, beta, route=route)
             ms, plain_ms = in_turns(torch, named, plain, 5 if big else 50, 3 if big else 5)
-            # per unordered pair: three length-D products (x.x, s.s and the
-            # cross terms) and ~12 operations for the IMQ terms
-            bnd = pair_bound(torch, T * (T + 1) // 2, 6 * D + 12, 4 * 2 * T * D + 8)
+            bnd = pair_bound(torch, *pairwise.stein_cost(T, D))
             row.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bnd,
                        share_of_bound=bnd["bound_ms"] / ms,
                        share_of_3xtf32_bound=bnd["bound_3xtf32_ms"] / ms)
@@ -660,9 +680,7 @@ def phase_pairwise(torch, report, gen):
         torch.cuda.synchronize()
         err = max(errors(torch, g, r) for g, r in zip(got.reshape(-1), ref.reshape(-1)))
         ms, plain_ms = in_turns(torch, kern, lambda: plain(P0, P1), 50 if D <= 4 else 10, 5)
-        # per pair: a squared distance over d (a subtraction and a
-        # multiply-add a dimension), an exp and an add
-        bnd = pair_bound(torch, pairs, 3 * D + 2, 4 * n_sets * T * D + 8)
+        bnd = pair_bound(torch, pairs, *pairwise.rbf_cost(pairs, n_sets * T, D))
         row = dict(shape=label[4:], max_abs_err=err[0], max_rel_err=err[1], ms=ms,
                    plain_ms=plain_ms, library_ms=None, **bnd, share_of_bound=bnd["bound_ms"] / ms)
         rows.append(row)
@@ -713,6 +731,8 @@ def phase_score_gate(torch, report, gen):
         ("pbc", 1024, 64, {"pbc": True}),
         ("tilt", 1024, 64, {"bc_value": 0.5, "tilt_lambda": 2.0, "tilt_val": 0.3}),
         ("clip", 37, 64, {"clip": 60.0}),
+        # rows wider than 1024 sites take the one-warp-a-row kernel
+        ("wide", 256, 2048, {}),
     ]
     out = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     for label, B, d, kw in cases:
@@ -725,10 +745,8 @@ def phase_score_gate(torch, report, gen):
         ref = phi_four.phi_four_score_gate_plain(x, gate, field.clone(), ex, dfield.clone(), **kw)
         torch.cuda.synchronize()
         err = max(errors(torch, got[0], ref[0]), errors(torch, got[1], ref[1]))
-        # x, gate, field read and field written; ex and dfield read and
-        # dfield written; ~10 operations a site and tangent
-        nbytes = 4 * (4 * B * d + 3 * K * B * d)
-        bnd, by = bound(10 * K * B * d, nbytes)
+        flops, nbytes = phi_four.score_gate_cost(B, d, K)
+        bnd, by = bound(flops, nbytes)
         copies = [tuple(v.clone() for v in (x, gate, field, ex, dfield))
                   for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
         turn = [0]
@@ -759,12 +777,16 @@ def phase_score_gate(torch, report, gen):
               flush=True)
         if not err[1] <= tol:
             fail(f"the score gate ({label}) disagrees with its plain version")
-        out = dict(max_abs_err=max(out["max_abs_err"], err[0]),
+        out.update(max_abs_err=max(out["max_abs_err"], err[0]),
                    max_rel_err=max(out["max_rel_err"], err[1]),
                    ms=out.get("ms", ms), plain_ms=out.get("plain_ms", plain_ms),
                    bound_ms=out.get("bound_ms", bnd), bound_by=out.get("bound_by", by),
                    library_ms=None, share_of_bound=out.get("share_of_bound", bnd / ms),
                    warm_ms=out.get("warm_ms", warm_ms), shape=f"B=1024 d=64 K={K} dirichlet")
+        if label == "wide":
+            out["wide"] = dict(shape=f"B={B} d={d} K={K} dirichlet", ms=ms, plain_ms=plain_ms,
+                               bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                               max_abs_err=err[0], max_rel_err=err[1])
     report["phi_four_score_gate"] = out
 
 
@@ -971,7 +993,7 @@ def phase_seed_equality(torch, run_dir):
     dev = torch.device("cuda")
     cfg = preset("4-mode", learning_iter=20, mcmc_per_flow_steps=10.0, num_importance_samples=0,
                  mcmc_kernel="mala", eval_iter=10)
-    args = argparse.Namespace(run_dir=run_dir, wandb=False)
+    args = argparse.Namespace(run_dir=run_dir, wandb=False, pallas_metrics=None, plots=False)
     target = cli.EXAMPLES["4-mode"](device=dev)
     swept = cli.run_seeds_vmapped(target, cfg, [0, 1], dev, args)
     worst, where = 0.0, None
@@ -1401,6 +1423,219 @@ def phase_library(torch, counters, tmp):
     return out
 
 
+def phase_roofline(torch):
+    """41: the roofline rows of the reference's bench (``bench.py::bench_roofline``)
+    and one through the fused field, each counted once
+    (``diagnostics.roofline.count``) and timed as the median of three calls:
+    ensemble MALA on pines' Cox target (128 chains, 400 steps); one
+    Hutchinson forward transport at pines' widths (d=1600, a 1024 x 1024
+    joint trunk, the score gate, 128 rows, 24 RK4 steps) on the module
+    field; the Stein discrepancy of 12,800 4-mode draws through K2a, as the
+    card's eval takes it; one exact forward transport of phi-four on K1 and
+    the fused score gate (1,024 rows, 24 RK4 steps). A row whose kernels
+    reported to the count must show each launch's hand count times the
+    launches its wrapper counted, and no other kernel."""
+    from mfm_tpu_torch.diagnostics import roofline
+    from mfm_tpu_torch.flows import (
+        kernel_tangent_field, make_transport, make_vector_field, module_tangent_field,
+    )
+    from mfm_tpu_torch.kernels import mala
+    from mfm_tpu_torch.ops import field, pairwise, phi_four
+    from mfm_tpu_torch.targets import LogGaussianCoxPines, PhiFour, four_mode_mixture
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    reports = {}
+
+    def row(name, fn, args, kernels):
+        """``kernels``: wrapper -> its hand (flops, bytes) a launch."""
+        before = {k: k.launches for k in kernels}
+        with torch.no_grad():
+            _, costs = roofline.count(fn, *args)
+            torch.cuda.synchronize()
+            launches = {k.__name__: k.launches - before[k] for k in kernels}
+            for k, (flops, nbytes) in kernels.items():
+                n, got = launches[k.__name__], costs.kernels.get(k.__name__)
+                if not n or got != roofline.KernelCount(n, n * flops, n * nbytes):
+                    fail(f"41 {name}: {k.__name__} counted {got}, its wrapper {n} launches of "
+                         f"{flops} flops and {nbytes} bytes")
+            if set(costs.kernels) != set(launches):
+                fail(f"41 {name}: kernels {sorted(costs.kernels)} reported, "
+                     f"{sorted(launches)} expected")
+            r = roofline.roofline(name, fn, *args)
+        pct = lambda v: "None" if v is None else f"{v:.3f} %"
+        print(f"[41 roofline {name}] {r.flops / 1e9:.4f} GFLOP, {r.bytes_accessed / 1e9:.4f} GB, "
+              f"{1e3 * r.seconds:.3f} ms a call: {r.achieved_flops_per_sec / 1e12:.3f} TFLOP/s "
+              f"({pct(r.pct_peak_flops)} of the bf16 peak), "
+              f"{r.achieved_bytes_per_sec / 1e9:.1f} GB/s ({pct(r.pct_peak_bandwidth)} of HBM); "
+              f"{r.bound}-bound by the counts; kernels (launches, flops) "
+              f"{ {k: (v.launches, v.flops) for k, v in costs.kernels.items()} }", flush=True)
+        if not (r.flops > 0 and r.bytes_accessed > 0 and math.isfinite(r.seconds)):
+            fail(f"41 {name}: nothing counted")
+        reports[name] = dict(r.as_dict(), kernels={k: v._asdict() for k, v in
+                                                  costs.kernels.items()})
+
+    cox = LogGaussianCoxPines(1600, device=dev)
+    kernel = mala.build_kernel(cox.value_and_score)
+    state = mala.init(cox.init_positions(gen, 128), cox.value_and_score)
+    noises = [mala.draw_noise(gen, 128, 1600) for _ in range(400)]
+
+    def run_mala(s):
+        for n in noises:
+            s = kernel(s, 0.01, n.noise, n.u_accept)[0]
+        return s
+
+    row("mala_lgcp_128x400", run_mala, (state,), {})
+
+    net, params = make_vector_field(
+        torch.Generator().manual_seed(41), 1600, cox.score, hidden_x=(), hidden_t=(),
+        hidden_xt=(1024, 1024), score_clip=10.0, score_gate=cox.score_gate, device=dev)
+    tr = make_transport(module_tangent_field(net), "hutchinson", n_steps=24)
+    u = torch.randn((128, 1600), generator=gen, device=dev)
+    probe = torch.randn((128, 1600), generator=gen, device=dev)
+    row("rk4_transport_pines_128", tr.forward, (params, u, probe), {})
+
+    four = four_mode_mixture(dev)
+    X = four.sample(gen, (12800,)).contiguous()
+    row("stein_12800", lambda x: pairwise.stein_disc_fused(x, four.score), (X,),
+        {pairwise.stein_pairwise_sum: pairwise.stein_cost(12800, 2)[1:]})
+
+    target = PhiFour(64)
+    net, params = perturbed_net(torch, 64, 128, 128, target, seed=1, gate_scale=1e-4)
+    layout = field.field_layout(params, 128)
+    tr = make_transport(kernel_tangent_field(net), "exact", n_steps=24)
+    u = torch.randn((1024, 64), generator=gen, device=dev)
+    row("rk4_transport_phi_four_fused_1024", tr.forward, (params, u),
+        {field.field_apply: (field.field_flops(layout, 1024, 64),
+                             field.field_bytes(layout, 1024, 64)),
+         phi_four.phi_four_score_gate: phi_four.score_gate_cost(1024, 64, 64)})
+    return reports
+
+
+def phase_figures(torch, tmp):
+    """42: a 4-mode run at phase 8's configuration and depth (50
+    iterations), its forward transport at the five times of the progression
+    figure on the card: the t=0 snapshot is u, the t=1 one the forward map
+    (1e-5). Then the figures: where matplotlib imports, the run's figure set
+    is rendered and its PNGs counted; where it does not (the card's
+    machine), ``--plots`` must be refused by name before training."""
+    from mfm_tpu_torch import cli
+    from mfm_tpu_torch.config import preset
+    from mfm_tpu_torch.drivers import run_mfm, sample_flow
+    from mfm_tpu_torch.drivers.mfm import make_generator
+    from mfm_tpu_torch.utils.logging import MetricLogger
+
+    dev = torch.device("cuda")
+    cfg = preset("4-mode", learning_iter=50, mcmc_per_flow_steps=10.0,
+                 num_importance_samples=0, mcmc_kernel="mala")
+    target = cli.make_target("4-mode", dev)
+    run = run_mfm(target, cfg, dev)
+    gen = make_generator(dev, cfg.seed, 999)
+    u = run.ref_dist.sample(gen, (1024,))
+    save_ts = [0.0, 0.25, 0.5, 0.75, 1.0]
+    with torch.no_grad():
+        traj = run.transport.forward_traj(run.train.params, u, save_ts)
+        x1 = run.transport.forward(run.train.params, u)[0]
+    e0 = float(torch.max(torch.abs(traj[0] - u)))
+    e1 = float(torch.max(torch.abs(traj[-1] - x1)))
+    moved = float(torch.max(torch.abs(x1 - u)))
+    print(f"[42 progression] 4-mode 50 its, 1024 draws at t={save_ts}: max abs t=0 - u "
+          f"{e0:.3e}, t=1 - forward {e1:.3e} (tol 1e-5); max |x(1) - u| {moved:.3f}", flush=True)
+    if not (traj.shape == (5, 1024, 2) and bool(torch.isfinite(traj).all())
+            and e0 <= 1e-5 and e1 <= 1e-5 and moved > 1e-3):
+        fail("42: the progression's snapshots disagree with u and the forward map")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        argv = ["--example", "4-mode", "--seed", "0", "--learning-iter", "5", "--plots",
+                "--run-dir", f"{tmp}/plots"]
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            said = str(e)
+        else:
+            fail("42: --plots ran where matplotlib does not import")
+        print(f"[42 figures] matplotlib does not import: --plots refused before training: "
+              f"{said!r}", flush=True)
+        if "--plots needs matplotlib" not in said:
+            fail("42: --plots was not refused by name")
+        return "refused"
+    from mfm_tpu_torch.drivers.plots import make_run_figures
+
+    fs, es, _ = sample_flow(run, 2048, target, gen)
+    figs = make_run_figures(target, cfg, fs, es, run=run, noise=u)
+    paths = MetricLogger(run_dir=f"{tmp}/figs", run_name="4-mode-seed0",
+                         stdout_every=0).log_figures(figs)
+    print(f"[42 figures] matplotlib imports: rendered {len(paths)} PNGs "
+          f"({', '.join(os.path.basename(p) for p in paths)})", flush=True)
+    if len(paths) != 2 or not all(os.path.getsize(p) for p in paths):
+        fail("42: the figure set is not pairs_0 and progression_0")
+    return "rendered"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_seeds(torch, limit_s=300):
+    """43: ``python -m mfm_tpu_torch.parallel.run_seeds`` as two processes on
+    this card (2 seeds, 20 iterations, gloo for the rows): both print the
+    same aggregate of 2 rows, and on the metric columns (logpdf*, KSD-U*,
+    MMD*; not train_time, a clock) it is ``aggregate_row`` of the two seeds
+    run one after another here, within 1e-2 relative (the tolerance of
+    phase 33's seed equality on the card). The launcher runs in a session
+    of its own, killed whole past ``limit_s`` or on a failure, so that a
+    hung rendezvous cannot hold the script."""
+    import signal
+
+    from mfm_tpu_torch.cli import make_target
+    from mfm_tpu_torch.parallel.distributed import aggregate_row
+    from mfm_tpu_torch.parallel.run_seeds import COLUMNS, seed_row
+
+    cmd = [sys.executable, "-m", "mfm_tpu_torch.parallel.run_seeds", "--num-processes", "2",
+           "--num-seeds", "2", "--learning-iter", "20", "--device", "cuda",
+           "--coordinator", f"localhost:{free_port()}"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"43: the two processes did not finish in {limit_s} s; killed")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"43: run_seeds exited {proc.returncode}: {err[-1500:]}")
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    dev = torch.device("cuda")
+    target = make_target("4-mode", dev)
+    mean, ci = aggregate_row([seed_row(target, s, 20, dev) for s in (0, 1)])
+    rel = lambda got, ref: max(abs(g - r) / max(abs(r), 1e-6)
+                               for g, r in zip(got[:3], ref[:3]))
+    worst = max(rel(lines[0]["aggregate_mean"], mean), rel(lines[0]["aggregate_ci95"], ci)) \
+        if lines else math.inf
+    print(f"[43 seeds] 2 processes on one card, {wall:.1f} s: {json.dumps(lines)}; "
+          f"in this process {dict(zip(COLUMNS, mean.round(6).tolist()))} "
+          f"+- {ci.round(6).tolist()}; max relative difference on the metric columns "
+          f"{worst:.3e} (tol 1e-2)", flush=True)
+    if not (len(lines) == 2 and all(r["total_rows"] == 2 for r in lines)
+            and lines[0]["aggregate_mean"] == lines[1]["aggregate_mean"]
+            and lines[0]["aggregate_ci95"] == lines[1]["aggregate_ci95"]):
+        fail("43: the two processes do not print one aggregate of two rows")
+    if not worst <= 1e-2:
+        fail("43: the processes' aggregate disagrees with the seeds run here")
+    return dict(wall=wall, max_rel_diff=worst)
+
+
 def main():
     try:
         import torch
@@ -1516,6 +1751,11 @@ def main():
         if not (n[K1] and n[K2A] and n[K2B]):
             fail("the equality and resume checks launched no K1, K2a or K2b")
         phase_library(torch, counters, tmp)
+        for label, must, fn in (
+                ("41 roofline", (K1, K2A, GATE), lambda: phase_roofline(torch)),
+                ("42 figures", (), lambda: phase_figures(torch, tmp)),
+                ("43 seeds", (K2A, K2B), lambda: phase_seeds(torch))):
+            library_phase(torch, counters, label, must, fn)
     report["field_apply"]["seed_axis"]["sweep_launches_per_iteration"] = sweeps[
         "31 phi-four fused field seeds"]["launches_per_it"][K1]
     launches = {f.__name__: f.launches for f in counters}

@@ -51,6 +51,7 @@ import ast
 import dataclasses
 import functools
 import logging
+from typing import Optional
 
 import numpy as np
 import torch
@@ -98,10 +99,14 @@ EXAMPLES = {
     "funnel": functools.partial(Funnel, 10),
     "many-well": functools.partial(ManyWell, 32),
 }
-# flags of the reference CLI whose code paths are not ported yet, with the
-# reference's defaults (any other value is refused)
-NOT_PORTED_FLAGS = {"plots": False}
 RUN_DIR = "runs"  # --run-dir's default, the reference's
+
+
+def make_target(example: str, device="cuda"):
+    """The example's target, built on ``device``."""
+    if example not in EXAMPLES:
+        raise ValueError(f"unknown example {example!r}")
+    return EXAMPLES[example](device=device)
 
 
 def make_logger(cfg, args) -> MetricLogger:
@@ -142,7 +147,8 @@ def _parse_set(items):
 def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
             flow_smc: int = 0, baseline: str = None, move_correct: int = 0,
             defensive_alpha: float = 1.0, defensive_var: float = 4.0,
-            logger: MetricLogger = None, full_metrics: bool = False, run=None) -> dict:
+            logger: MetricLogger = None, full_metrics: bool = False, run=None,
+            fused_metrics: Optional[bool] = None, plots: bool = False) -> dict:
     """One seed: train, sample, evaluate. Returns the metric row with
     ``train_time``, ``it_per_s``, and the ESS of the weights behind the
     ``*_star`` row and its number of distinct points (``is_ess``,
@@ -168,7 +174,10 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
     ``logger`` (default: none) gets the chunk means, the extras and the
     final row, and with ``full_metrics`` every iteration's metrics. ``run``:
     an MFM run already trained (one seed of a sweep), evaluated in place of
-    a training run."""
+    a training run. ``fused_metrics`` is ``evaluate_samples``' choice of
+    the pairwise kernels (``--pallas-metrics``); ``plots`` renders the
+    reference's figure set (``drivers.plots.make_run_figures``) into the
+    logger's run directory."""
     log_to = logger if logger is not None else MetricLogger(stdout_every=0)
     n_eval = cfg.eval_iter * cfg.num_chain
     real_samples = None
@@ -229,15 +238,21 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
         extra["is_unique"] = int(torch.unique(exact_samples, dim=0).shape[0])
         if "step_size" in run.metrics:
             extra["step_size"] = float(run.metrics["step_size"][-1])
-    metrics = evaluate_samples(target, flow_samples, exact_samples, real_samples)
+    metrics = evaluate_samples(target, flow_samples, exact_samples, real_samples,
+                               fused_metrics=fused_metrics)
     if check and real_samples is not None:
-        floor = check_floor(target, real_samples)
+        floor = check_floor(target, real_samples, fused_metrics=fused_metrics)
         log_to.summary(floor)
         metrics.update(floor)
     metrics.update(extra)
     metrics["train_time"] = train_time
     metrics["it_per_s"] = cfg.learning_iter / train_time
     log_to.summary(metrics)
+    if plots:
+        from mfm_tpu_torch.drivers.plots import make_run_figures
+
+        log_to.log_figures(make_run_figures(target, cfg, flow_samples, exact_samples, run=run,
+                                            noise=make_generator(device, cfg.seed, 999)))
     if full_metrics and run is not None:
         log_to.log_per_iteration(run.metrics)
     log_to.finish()
@@ -253,19 +268,27 @@ def run_seeds_vmapped(target, cfg, seeds, device, args) -> list:
     for i, seed in enumerate(seeds):
         cfg.seed = seed
         results.append(run_one(target, cfg, device, logger=make_logger(cfg, args),
-                               run=seed_run(sweep, cfg, i)))
+                               run=seed_run(sweep, cfg, i), fused_metrics=args.pallas_metrics,
+                               plots=args.plots))
     return results
 
 
 def _check_flags(args) -> None:
     """The reference's conflict guards (``mfm_tpu/cli.py:334-354``) and the
     port's own: ``--defensive-alpha`` below 1 is refused wherever the
-    reference would ignore it."""
-    # `!=` against each flag's own default: `True in (False, 0, 1.0)` holds
-    given = [f for f, default in NOT_PORTED_FLAGS.items() if getattr(args, f) != default]
-    if given:
-        flags = ", ".join("--" + f.replace("_", "-") for f in given)
-        raise SystemExit(f"{flags}: not ported yet")
+    reference would ignore it; ``--pallas-metrics`` off the card, where
+    there is no kernel; ``--plots`` where matplotlib does not import, before
+    training and not after it."""
+    if args.pallas_metrics and torch.device(args.device).type != "cuda":
+        raise SystemExit(
+            f"--pallas-metrics: the pairwise kernels (K2a/K2b) run only on a CUDA device, "
+            f"not on {args.device}; drop it or pass --no-pallas-metrics")
+    if args.plots:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise SystemExit("--plots needs matplotlib, which does not import here; "
+                             "drop --plots") from None
     non_mfm = [f"--{f.replace('_', '-')}" for f in ("do_smc", "do_fab", "do_flowmc", "do_dds")
                if getattr(args, f)]
     if args.move_correct and non_mfm:
@@ -362,12 +385,15 @@ def main(argv=None):
                    help="also log to Weights & Biases, where it is installed")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="override any MFMConfig field (repeatable)")
-    for flag, default in NOT_PORTED_FLAGS.items():
-        name = "--" + flag.replace("_", "-")
-        if isinstance(default, bool):
-            p.add_argument(name, action="store_true", help="not ported yet")
-        else:
-            p.add_argument(name, type=type(default), default=default, help="not ported yet")
+    p.add_argument("--pallas-metrics", action=argparse.BooleanOptionalAction, default=None,
+                   help="evaluate KSD/MMD with the pairwise CUDA kernels (K2a/K2b); "
+                        "default: on for a CUDA device; --no-pallas-metrics runs the "
+                        "tiled plain PyTorch statistics (refused with --device cpu, "
+                        "where there is no kernel)")
+    p.add_argument("--plots", action="store_true",
+                   help="save the reference's end-of-run figures (pair scatters, phi-four "
+                        "fields, the 2-D flow progression) as PNGs under the run dir; "
+                        "needs matplotlib")
     args = p.parse_args(argv)
     _check_flags(args)
     device = torch.device(args.device)
@@ -391,8 +417,10 @@ def main(argv=None):
             overrides[name] = val
     overrides["mcmc_kernel"] = args.mcmc_kernel
     overrides.update(_parse_set(args.set))
+    if overrides.get("mesh_shape") is not None:
+        raise SystemExit("--set mesh_shape: not ported yet (a chain mesh across cards)")
     cfg = preset(args.example, **overrides)
-    target = EXAMPLES[args.example](device=device)
+    target = make_target(args.example, device)
     if args.defensive_alpha < 1.0:  # refused before training, not after
         try:
             check_normalised(reference_of(target, cfg, device))
@@ -414,7 +442,8 @@ def main(argv=None):
                 flow_smc=args.flow_smc, baseline=None if args.do_smc else baseline,
                 move_correct=args.move_correct, defensive_alpha=args.defensive_alpha,
                 defensive_var=args.defensive_var, logger=make_logger(cfg, args),
-                full_metrics=args.full_metrics))
+                full_metrics=args.full_metrics, fused_metrics=args.pallas_metrics,
+                plots=args.plots))
 
     cols = ("logpdf", "stein_u", "stein_v", "mmd", "train_time")
     rows = np.asarray([[m[c] for c in cols] for m in results])

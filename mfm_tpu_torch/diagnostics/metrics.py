@@ -1,5 +1,7 @@
 """Kernelised Stein discrepancy and MMD (counterpart of
-``mfm_tpu.diagnostics.metrics``), tiled plain PyTorch.
+``mfm_tpu.diagnostics.metrics``), tiled plain PyTorch; and the chain
+diagnostics (autocorrelation, ESS, split R-hat), host numpy on arrays or
+tensors moved to the host, as the reference's are.
 
 Every pairwise quantity comes from Gram products over a row tile,
 ``|x - y|^2 = |x|^2 + |y|^2 - 2 x.y`` and
@@ -8,6 +10,7 @@ tile x T. ``stein_term`` / ``rbf_term`` are shared with the plain versions
 of the pairwise kernels (``mfm_tpu_torch.ops.pairwise``).
 """
 
+import numpy as np
 import torch
 
 
@@ -69,3 +72,73 @@ def max_mean_disc(X, Y, sigma2: float = 1.0, tile: int = 256):
     xy = ksum(X, Y)
     m2 = m * m
     return xx / (m2 - m) - 2.0 * xy / m2 + yy / (m2 - m)
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _next_fast_len(n: int) -> int:
+    """Smallest 5-smooth integer >= n."""
+    while True:
+        m = n
+        for p in (2, 3, 5):
+            while m % p == 0:
+                m //= p
+        if m == 1:
+            return n
+        n += 1
+
+
+def autocorrelation(x, axis: int = 0) -> np.ndarray:
+    """FFT-based autocorrelation along ``axis``, normalised to 1 at lag 0."""
+    x = _host(x)
+    N = x.shape[axis]
+    M2 = 2 * _next_fast_len(N)
+    x = np.swapaxes(x, axis, -1)
+    centered = x - x.mean(axis=-1, keepdims=True)
+    freq = np.fft.rfft(centered, n=M2, axis=-1)
+    ac = np.fft.irfft(freq * np.conjugate(freq), n=M2, axis=-1)[..., :N]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ac = ac / ac[..., :1]
+    return np.swapaxes(ac, axis, -1)
+
+
+def potential_scale_reduction(chains) -> np.ndarray:
+    """Split R-hat over a (n_steps, n_chains, d) sample block (a 2-D block
+    is one dimension): each chain cut in two halves."""
+    x = _host(chains)
+    if x.ndim == 2:
+        x = x[:, :, None]
+    T = x.shape[0] - (x.shape[0] % 2)
+    half = T // 2
+    x = np.concatenate([x[:half], x[half:T]], axis=1)  # (half, 2m, d)
+    n = x.shape[0]
+    chain_means = x.mean(axis=0)  # (m, d)
+    chain_vars = x.var(axis=0, ddof=1)  # (m, d)
+    between = n * chain_means.var(axis=0, ddof=1)
+    within = chain_vars.mean(axis=0)
+    var_plus = (n - 1) / n * within + between / n
+    return np.sqrt(var_plus / within)
+
+
+def effective_sample_size(x) -> np.ndarray:
+    """Per-dimension ESS of a (T, d) chain by Geyer's initial positive
+    sequence on the FFT autocorrelations."""
+    x = _host(x)
+    if x.ndim == 1:
+        x = x[:, None]
+    T = x.shape[0]
+    ac = autocorrelation(x, axis=0)  # (T, d)
+    ess = np.empty(x.shape[1])
+    for j in range(x.shape[1]):
+        # pair consecutive lags; stop at the first negative pair sum
+        pair = ac[: (T // 2) * 2, j].reshape(-1, 2).sum(axis=1)
+        neg = np.nonzero(pair < 0)[0]
+        stop = neg[0] if neg.size else pair.size
+        tau = -1.0 + 2.0 * pair[:stop].sum()
+        ess[j] = T / max(tau, 1.0 / T)
+    return ess

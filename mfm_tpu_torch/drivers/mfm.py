@@ -84,7 +84,7 @@ from mfm_tpu_torch.flows import (
 from mfm_tpu_torch.flows.cnf import EXACT_DISC_MAX_D
 from mfm_tpu_torch.flows.flow_mh import CisNoise, IndepNoise, RwmNoise  # noqa: F401
 from mfm_tpu_torch.flows.train import TrainState
-from mfm_tpu_torch.flows.vector_field import PRECISIONS
+from mfm_tpu_torch.flows.vector_field import PRECISIONS, make_vector_field
 from mfm_tpu_torch.kernels import ChainState, mala
 from mfm_tpu_torch.kernels.mala import MalaNoise
 from mfm_tpu_torch.kernels.nuts import NUTSNoise
@@ -206,6 +206,13 @@ def next_beta(prev_beta, logliks, alpha: float, n_chain: int, n_iters: int = 30)
     return bisection(gap, prev_beta, 1.0, n_iters=n_iters, device=logliks.device)
 
 
+def tempered_value_and_score(target: Target) -> Callable:
+    """``(x, beta) -> (logdensity, grad)`` of beta * log_lik + log_prior,
+    batched: the target's own, which may be analytic (the Cox target's
+    products, phi-four's K3)."""
+    return target.tempered_value_and_score
+
+
 def _interleave_is_flow(count: int, mcmc_per_flow_steps: float) -> bool:
     """Ratio in (0, 1): one MCMC step every int(1/ratio)+1 iterations (the
     rest flow); ratio >= 1: one flow step every int(ratio)+1 (the rest
@@ -269,13 +276,12 @@ def build_mfm(
 
     nets = []
     for gen in gens:
-        fourier = cfg.fourier_std * torch.randn(cfg.fourier_dim, generator=gen)
-        nets.append(VectorFieldNet(
-            d, fourier, tuple(cfg.hidden_x), tuple(cfg.hidden_t), tuple(cfg.hidden_xt),
-            act=cfg.non_linearity, score_fn=target.score, score_clip=cfg.score_clip,
-            generator=gen, precision=cfg.field_precision,
+        nets.append(make_vector_field(
+            gen, d, target.score, cfg.hidden_x, cfg.hidden_t, cfg.hidden_xt, cfg.fourier_dim,
+            cfg.fourier_std, cfg.non_linearity, cfg.score_clip, cfg.field_precision,
             score_gate=target.score_gate,  # the transport's: fused where the target has it
-        ).to(device))
+            device=device,
+        )[0])
     net = nets[0]  # the structure; a sweep's parameters and frequencies are stacked
     fourier = (torch.stack([n.fourier_freqs for n in nets]) if swept else net.fourier_freqs)
 

@@ -204,6 +204,29 @@ def _times(x, t: float):
     return torch.full(x.shape[:1], t, dtype=x.dtype, device=x.device)
 
 
+def discrete_map_logdet(pos_map: Optional[Callable], u: torch.Tensor,
+                        tangent_map: Optional[Callable] = None):
+    """(x, log|det d pos_map / du|) of a batched discrete map, exactly: the
+    d basis tangents pushed through the map give the (B, d, d) Jacobian a
+    column at a time, closed by a batched ``slogdet``. ``tangent_map(u, E)
+    -> (x, J E)``, for E (d, B, d), pushes them alongside the map itself
+    (a transport carries them through its integrator); without it they
+    are ``torch.func.jvp`` of ``pos_map``. The map must be batch-decoupled:
+    sample b's output may depend on sample b's input alone, else the column
+    pushes with e_i across the whole batch do not give each sample's
+    Jacobian."""
+    B, d = u.shape
+    basis = torch.eye(d, dtype=u.dtype, device=u.device)[:, None, :].expand(d, B, d).contiguous()
+    with torch.no_grad():
+        if tangent_map is None:
+            x = pos_map(u)
+            cols = vmap(lambda e: jvp(pos_map, (u,), (e,))[1])(basis)
+        else:
+            x, cols = tangent_map(u, basis)
+        # cols[i] = J e_i, (B, d): jac[b, :, i]
+        return x, torch.linalg.slogdet(cols.permute(1, 2, 0))[1]
+
+
 def _make_exact_disc_transport(bind: Callable, n_steps: int, method: str) -> Transport:
     """Transport whose logdet is the exact log-Jacobian of the discrete map,
     with the contract and sign convention of the other paths: ``forward``
@@ -219,18 +242,14 @@ def _make_exact_disc_transport(bind: Callable, n_steps: int, method: str) -> Tra
                 f"d <= {EXACT_DISC_MAX_D}, got {d}; use 'exact' or 'hutchinson'"
             )
         f = bind(params)
-        basis = torch.eye(d, dtype=y.dtype, device=y.device)[:, None, :].expand(d, B, d)
 
         def dyn(state, s):  # the map's own tangents: d(stage) = J(stage point) . E
             x, tangents = state
             v, jv = f(x, _times(x, s if sign > 0 else 1.0 - s), tangents.contiguous())
             return (v, jv) if sign > 0 else (-v, -jv)
 
-        with torch.no_grad():
-            out, tangents = odeint_grid(dyn, (y, basis.contiguous()), 0.0, 1.0, n_steps, method)
-            # tangents[i] = J e_i, one (B, d) column set: jac[b, :, i]
-            logdet = torch.linalg.slogdet(tangents.permute(1, 2, 0))[1]
-        return out, logdet
+        return discrete_map_logdet(
+            None, y, lambda y0, basis: odeint_grid(dyn, (y0, basis), 0.0, 1.0, n_steps, method))
 
     def forward(params, u, probe=None):
         return _run(params, u, +1)

@@ -139,6 +139,21 @@ def adamw_finite(
     return GradientTransformation(init_fn, update_fn)
 
 
+def make_optimizer(
+    learning_rate_fn,
+    weight_decay: float = 1e-4,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    gradient_clip: float = 1.0,
+    nonfinite_patience: int = 10,
+) -> GradientTransformation:
+    """``adamw_finite`` with the weight decay second, in the reference's
+    order."""
+    return adamw_finite(learning_rate_fn, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                        gradient_clip=gradient_clip, nonfinite_patience=nonfinite_patience)
+
+
 def create_train_state(params: dict, tx: GradientTransformation) -> TrainState:
     dev = next(iter(params.values())).device
     return TrainState(torch.zeros((), dtype=torch.int32, device=dev), params, tx.init(params))

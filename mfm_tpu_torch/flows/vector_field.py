@@ -72,12 +72,22 @@ class Dense(nn.Linear):
         return F.linear(h.bfloat16().float(), self.weight.bfloat16().float(), self.bias)
 
 
-def _trunk(widths: Sequence[int], fan_in: int, precision: str) -> nn.ModuleList:
-    layers = nn.ModuleList()
-    for width in widths:
-        layers.append(Dense(fan_in, width, precision))
-        fan_in = width
-    return layers
+class MLP(nn.ModuleList):
+    """``Dense`` layers of the given widths, each followed by the activation
+    (the reference's ``MLP``); layer i is the flax tree's ``Dense_i``."""
+
+    def __init__(self, fan_in: int, features: Sequence[int], act: str = "relu",
+                 precision: str = "highest"):
+        super().__init__()
+        for width in features:
+            self.append(Dense(fan_in, width, precision))
+            fan_in = width
+        self.act = NON_LINEARITIES[act]
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for layer in self:
+            h = self.act(layer(h))
+        return h
 
 
 class VectorFieldNet(nn.Module):
@@ -98,7 +108,6 @@ class VectorFieldNet(nn.Module):
         super().__init__()
         self.dim = dim
         self.act_name = act
-        self.act = NON_LINEARITIES[act]
         self.score_fn = score_fn
         self.score_clip = score_clip
         if score_gate is None and score_fn is not None:
@@ -106,11 +115,11 @@ class VectorFieldNet(nn.Module):
         self.score_gate = score_gate
         self.register_buffer("fourier_freqs", torch.as_tensor(fourier_freqs))
         n_feat = 2 * self.fourier_freqs.shape[0]
-        self.t_trunk = _trunk(hidden_t, n_feat, precision)
-        self.x_trunk = _trunk(hidden_x, dim, precision)
+        self.t_trunk = MLP(n_feat, hidden_t, act, precision)
+        self.x_trunk = MLP(dim, hidden_x, act, precision)
         ht = hidden_t[-1] if hidden_t else n_feat
         hx = hidden_x[-1] if hidden_x else dim
-        self.xt_trunk = _trunk(hidden_xt, hx + ht, precision)
+        self.xt_trunk = MLP(hx + ht, hidden_xt, act, precision)
         self.gate_head = Dense(ht, dim, precision)
         self.field_head = Dense(hidden_xt[-1] if hidden_xt else hx + ht, dim, precision)
         self._init_params(generator)
@@ -132,17 +141,10 @@ class VectorFieldNet(nn.Module):
     def mlp(self, x: torch.Tensor, t: torch.Tensor):
         """(field, gate) of the MLP alone, x (B, d), t (B,)."""
         ang = (2.0 * math.pi) * t[:, None] * self.fourier_freqs[None, :]
-        h_t = torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
-        for layer in self.t_trunk:
-            h_t = self.act(layer(h_t))
-        h_x = x
-        for layer in self.x_trunk:
-            h_x = self.act(layer(h_x))
-        gate = self.gate_head(h_t)
-        h = torch.cat([h_x, h_t], dim=-1)
-        for layer in self.xt_trunk:
-            h = self.act(layer(h))
-        return self.field_head(h), gate
+        h_t = self.t_trunk(torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1))
+        h_x = self.x_trunk(x)
+        h = self.xt_trunk(torch.cat([h_x, h_t], dim=-1))
+        return self.field_head(h), self.gate_head(h_t)
 
     def forward(self, x: torch.Tensor, t, score: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The field at (x, t). ``score``, when given, is ``score_fn(x)``
@@ -165,3 +167,33 @@ class VectorFieldNet(nn.Module):
 def field_params(net: nn.Module) -> dict:
     """The net's parameters as a detached ``{name: tensor}`` dict."""
     return {k: v.detach().clone() for k, v in net.named_parameters()}
+
+
+def make_vector_field(
+    generator: torch.Generator,
+    dim: int,
+    score_fn: Optional[Callable] = None,
+    hidden_x: Sequence[int] = (128, 128),
+    hidden_t: Sequence[int] = (128, 128),
+    hidden_xt: Sequence[int] = (128, 128),
+    fourier_dim: int = 128,
+    fourier_std: float = 1.0,
+    non_linearity: str = "relu",
+    score_clip: Optional[float] = None,
+    precision: str = "highest",
+    score_gate: Optional[Callable] = None,
+    device="cuda",
+):
+    """The net and its initial parameters, ``(net, params)``: the Fourier
+    frequencies ``fourier_std * N(0, 1)`` and then the weights, drawn from
+    ``generator`` (on the CPU), the net moved to ``device``; ``params`` is
+    ``field_params(net)``, the dict ``utils.convert.params_from_flax`` makes
+    of a flax tree. Evaluate with ``torch.func.functional_call(net, params,
+    (x, t))``."""
+    freqs = fourier_std * torch.randn(fourier_dim, generator=generator)
+    net = VectorFieldNet(
+        dim, freqs, tuple(hidden_x), tuple(hidden_t), tuple(hidden_xt), act=non_linearity,
+        score_fn=score_fn, score_clip=score_clip, generator=generator, precision=precision,
+        score_gate=score_gate,
+    ).to(device)
+    return net, field_params(net)

@@ -7,14 +7,16 @@ inverse mass, then the batched MH accept of ``kernels/proposal.py`` with
 divergence flagging. The noise is injected: the momentum is
 ``eps / sqrt(inv_mass)`` for standard normal ``eps`` (B, d), and
 ``u_accept`` (B,) are the accept's uniforms (the reference's ``key_mom``
-and ``key_acc``); ``draw_noise`` draws both from a generator.
+and ``key_acc``); ``draw_noise`` draws both from a generator. ``hmc``
+wraps the kernel as a ``SamplingAlgorithm``.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from mfm_tpu_torch.kernels.base import ChainState
+from mfm_tpu_torch.kernels.base import ChainState, SamplingAlgorithm, draw
+from mfm_tpu_torch.kernels.mala import init
 from mfm_tpu_torch.kernels.proposal import (
     Proposal,
     proposal_from_energy_diff,
@@ -89,3 +91,25 @@ def build_kernel(value_and_score: Callable, divergence_threshold: float = 1000.0
         return sampled.state, info
 
     return kernel
+
+
+def hmc(
+    value_and_score: Callable,
+    step_size: float,
+    num_integration_steps: int = 10,
+    inverse_mass: Optional[torch.Tensor] = None,
+) -> SamplingAlgorithm:
+    """``init(position)``, ``step(noise, state)`` with ``noise`` a generator
+    or an ``HMCNoise``."""
+    kernel = build_kernel(value_and_score)
+
+    def init_fn(position):
+        return init(position, value_and_score)
+
+    def step_fn(noise, state):
+        B, d = state.position.shape
+        noise = draw(noise, lambda g: draw_noise(g, B, d))
+        return kernel(state, step_size, num_integration_steps, inverse_mass, noise.eps,
+                      noise.u_accept)
+
+    return SamplingAlgorithm(init_fn, step_fn)

@@ -5,7 +5,9 @@ ratio exp(E(x -> x') - E(x' -> x)), E(a -> b) = -log pi(a) +
 ||b - a - h grad(a)||^2 / (4h). ``noise`` (B, d) and ``u_accept`` (B,) are
 injected: they are the standard normal and uniform draws the reference
 takes from ``key_noise`` and ``key_accept`` (``MalaNoise``, drawn by
-``draw_noise``).
+``draw_noise``). ``mala`` wraps the kernel as a ``SamplingAlgorithm``
+whose ``step(noise, state)`` takes a generator or a ``MalaNoise``;
+``run_chain`` runs a kernel for a number of steps.
 """
 
 import math
@@ -13,7 +15,13 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from mfm_tpu_torch.kernels.base import ChainInfo, ChainState
+from mfm_tpu_torch.kernels.base import (
+    ChainInfo,
+    ChainState,
+    SamplingAlgorithm,
+    draw,
+    step_noise,
+)
 from mfm_tpu_torch.kernels.proposal import (
     Proposal,
     proposal_from_energy_diff,
@@ -82,3 +90,33 @@ def build_kernel(value_and_score: Callable) -> Callable:
         return sampled.state, ChainInfo(p_accept, accept, proposed, proposed_weight)
 
     return kernel
+
+
+def mala(value_and_score: Callable, step_size: float) -> SamplingAlgorithm:
+    """``init(position)``, ``step(noise, state)`` at a fixed step size."""
+    kernel = build_kernel(value_and_score)
+
+    def init_fn(position):
+        return init(position, value_and_score)
+
+    def step_fn(noise, state):
+        B, d = state.position.shape
+        noise = draw(noise, lambda g: draw_noise(g, B, d))
+        return kernel(state, step_size, noise.noise, noise.u_accept)
+
+    return SamplingAlgorithm(init_fn, step_fn)
+
+
+def run_chain(noise, kernel: Callable, state: ChainState, step_size, n_steps: int):
+    """``n_steps`` of ``kernel`` (``build_kernel``'s) from ``state``;
+    ``noise`` a generator or a sequence of one ``MalaNoise`` a step (the
+    reference's split keys). Returns the final state, the positions
+    (n_steps, B, d) and the acceptance rates (n_steps, B)."""
+    positions, acceptance = [], []
+    for k in range(n_steps):
+        B, d = state.position.shape
+        nk = draw(step_noise(noise, k), lambda g: draw_noise(g, B, d))
+        state, info = kernel(state, step_size, nk.noise, nk.u_accept)
+        positions.append(state.position)
+        acceptance.append(info.acceptance_rate)
+    return state, torch.stack(positions), torch.stack(acceptance)

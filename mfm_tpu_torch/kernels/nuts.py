@@ -30,13 +30,18 @@ once no chain is active (one host read a doubling), and the iterative one
 stops a subtree once no chain grows (one host read a leaf). Frozen chains
 do not move, so the result is the same bit for bit as running every
 masked leapfrog, which the reference's static variant does.
+
+``nuts`` wraps the kernel as a ``SamplingAlgorithm``;
+``build_kernel_iterative`` is ``build_kernel(..., variant='iterative')``
+under the reference's name.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from mfm_tpu_torch.kernels.base import ChainState
+from mfm_tpu_torch.kernels.base import ChainState, SamplingAlgorithm, draw
+from mfm_tpu_torch.kernels.mala import init
 
 
 class NUTSInfo(NamedTuple):
@@ -302,3 +307,31 @@ def build_kernel(
         return ChainState(prop_q, prop_ld, prop_g), info
 
     return kernel
+
+
+def build_kernel_iterative(
+    value_and_score: Callable, max_depth: int = 10, divergence_threshold: float = 1000.0
+) -> Callable:
+    """The iterative variant of ``build_kernel`` at any depth."""
+    return build_kernel(value_and_score, max_depth, divergence_threshold, variant="iterative")
+
+
+def nuts(
+    value_and_score: Callable,
+    step_size: float,
+    max_depth: int = 6,
+    inverse_mass: Optional[torch.Tensor] = None,
+) -> SamplingAlgorithm:
+    """``init(position)``, ``step(noise, state)`` with ``noise`` a generator
+    or a ``NUTSNoise`` of the variant ``max_depth`` picks."""
+    kernel = build_kernel(value_and_score, max_depth)
+
+    def init_fn(position):
+        return init(position, value_and_score)
+
+    def step_fn(noise, state):
+        B, d = state.position.shape
+        noise = draw(noise, lambda g: draw_noise(g, B, d, max_depth, "auto"))
+        return kernel(state, step_size, inverse_mass, noise)
+
+    return SamplingAlgorithm(init_fn, step_fn)

@@ -13,7 +13,8 @@ on inputs that require grad (training differentiates the ``nn.Module``).
 The kernel streams the weights in tiles of ``TILE_ROWS`` rows in the order
 it consumes them; ``weight_tiles`` builds that schedule and ``kernel_meta``
 the struct that carries it, once per (layout, activation).
-``field_flops`` and ``field_bytes`` count one call's work.
+``field_flops`` and ``field_bytes`` count one call's work, which the
+wrapper reports to an open roofline count (``diagnostics.roofline``).
 
 The seed axis (the reference's ``pallas_call`` under ``jax.vmap`` of a seed
 sweep): ``packed`` (S, P) and ``freqs`` (S, F) hold S nets of one layout,
@@ -29,6 +30,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from mfm_tpu_torch.diagnostics import roofline
 from mfm_tpu_torch.ops import build
 
 ACTIVATIONS = ("relu", "tanh")
@@ -326,6 +328,9 @@ def field_apply(
     )
     build.check(err, "field_apply")
     field_apply.launches += 1
+    if roofline.counter is not None:
+        roofline.counter.add_kernel("field_apply", field_flops(layout, rows, K),
+                                    field_bytes(layout, B, K, S))
     return (field, gate) if ex is None else (field, gate, dfield)
 
 

@@ -11,7 +11,9 @@ sum at d >= ``GRAM_MIN_D`` takes the tensor cores, with a first launch
 that centres X, unless the data would cost the Gram form its accuracy
 (``gram_error_estimate``: far-apart modes, repeated points), which sends
 it to the differences form. The U/V and MMD^2 assembly stays here, as in
-``pairwise_pallas.py:168-185``.
+``pairwise_pallas.py:168-185``. ``stein_cost`` and ``rbf_cost`` count a
+launch's work, which the wrappers report to an open roofline count
+(``diagnostics.roofline``).
 """
 
 import functools
@@ -20,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from mfm_tpu_torch.diagnostics import roofline
 from mfm_tpu_torch.diagnostics.metrics import rbf_term, stein_term
 from mfm_tpu_torch.ops import build
 
@@ -48,6 +51,23 @@ GRAM_ERROR_BUDGET = 2.5e-6
 # Blocks of a launch for each SM: many short runs of tiles, so that the
 # card's own block scheduler evens out the strips' unequal lengths.
 BLOCKS_PER_SM = 16
+
+
+def stein_cost(T: int, d: int):
+    """(pairs, flops, bytes) of a Stein sum over T points in d that any
+    implementation must do: each unordered pair once (the diagonal
+    included), with three length-d products (x.x, s.s and the cross terms)
+    and ~12 operations for the IMQ terms; X and S read once, the fp64 sum
+    written."""
+    pairs = T * (T + 1) // 2
+    return pairs, pairs * (6 * d + 12), 4 * 2 * T * d + 8
+
+
+def rbf_cost(pairs: int, rows: int, d: int):
+    """(flops, bytes) of RBF sums over ``pairs`` pairs of ``rows`` distinct
+    points in d: a squared distance a pair (a subtraction and a multiply-add
+    a dimension), an exp and an add; the points read once, a sum written."""
+    return pairs * (3 * d + 2), 4 * rows * d + 8
 
 
 def stein_pairwise_sum_plain(X, S, beta: float = -0.5, tile: int = 256):
@@ -223,6 +243,8 @@ def stein_pairwise_sum(X: torch.Tensor, S: torch.Tensor, beta: float = -0.5,
     build.check(err, "stein_pairwise_sum")
     stein_pairwise_sum.launches += 1
     stein_pairwise_sum.route_counts[route] += 1
+    if roofline.counter is not None:
+        roofline.counter.add_kernel("stein_pairwise_sum", *stein_cost(T, d)[1:])
     return out[0]
 
 
@@ -238,6 +260,12 @@ def _rbf_launch(P0, P1, sums, sigma2):
         "rbf_kernel_sum",
     )
     rbf_kernel_sum.launches += 1
+    if roofline.counter is not None:
+        n0, n1 = P0.shape[0], P1.shape[0]
+        pairs = sum(n0 * n1 if kind == 2 else (n0, n1)[kind] * ((n0, n1)[kind] + 1) // 2
+                    for kind, *_ in sums)
+        rows = n0 if P1 is P0 else n0 + n1
+        roofline.counter.add_kernel("rbf_kernel_sum", *rbf_cost(pairs, rows, P0.shape[1]))
     return out
 
 

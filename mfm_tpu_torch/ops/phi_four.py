@@ -23,6 +23,9 @@ forward only: the kernel writes through raw pointers, which no autograd
 tape sees, so it and its plain version refuse inputs that require grad
 (``torch.autograd`` or a ``torch.func`` transform such as ``grad``), as K1
 does (``ops/field.py``).
+
+``phi_four_cost`` and ``score_gate_cost`` count a launch's work, which the
+wrappers report to an open roofline count (``diagnostics.roofline``).
 """
 
 import functools
@@ -31,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from mfm_tpu_torch.diagnostics import roofline
 from mfm_tpu_torch.ops import build
 
 
@@ -121,6 +125,19 @@ def phi_four_score_gate_plain(
     return field, dfield
 
 
+def phi_four_cost(B: int, d: int, with_score: bool = True):
+    """(flops, bytes) of one K3 call: ~16 operations a site for the value
+    and the score; x read once, the value (and the score) written once."""
+    return 16 * B * d, 4 * ((2 if with_score else 1) * B * d + B)
+
+
+def score_gate_cost(B: int, d: int, K: int):
+    """(flops, bytes) of one score-gate call with K tangents: ~10
+    operations a site and tangent; x, gate and field read and field
+    written, ex and dfield read and dfield written."""
+    return 10 * K * B * d, 4 * (4 * B * d + 3 * K * B * d)
+
+
 @functools.cache
 def _launcher(name: str):
     """The kernel library's C function ``name``, looked up once."""
@@ -155,6 +172,8 @@ def phi_four_value_and_score(
     if err:
         build.check(err, "phi_four_value_and_score")
     phi_four_value_and_score.launches += 1
+    if roofline.counter is not None:
+        roofline.counter.add_kernel("phi_four_value_and_score", *phi_four_cost(B, d, with_score))
     return value, score
 
 
@@ -204,6 +223,8 @@ def phi_four_score_gate(
     if err:
         build.check(err, "phi_four_score_gate")
     phi_four_score_gate.launches += 1
+    if roofline.counter is not None:
+        roofline.counter.add_kernel("phi_four_score_gate", *score_gate_cost(B, d, K))
     return field, dfield
 
 

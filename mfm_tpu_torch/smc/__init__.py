@@ -1,4 +1,5 @@
 from mfm_tpu_torch.smc import adaptive_tempered, base, ess, resampling, solvers, tempered
+from mfm_tpu_torch.smc.adaptive_tempered import adaptive_tempered_smc
 from mfm_tpu_torch.smc.base import SMCInfo, SMCState
 from mfm_tpu_torch.smc.resampling import (
     RESAMPLERS,
@@ -9,7 +10,7 @@ from mfm_tpu_torch.smc.resampling import (
     systematic,
 )
 from mfm_tpu_torch.smc.solvers import bisection, dichotomy
-from mfm_tpu_torch.smc.tempered import SMCStepNoise, TemperedSMCState
+from mfm_tpu_torch.smc.tempered import SMCStepNoise, TemperedSMCState, tempered_smc
 
 __all__ = [
     "adaptive_tempered",
@@ -18,6 +19,7 @@ __all__ = [
     "resampling",
     "solvers",
     "tempered",
+    "adaptive_tempered_smc",
     "SMCInfo",
     "SMCState",
     "RESAMPLERS",
@@ -30,4 +32,5 @@ __all__ = [
     "dichotomy",
     "SMCStepNoise",
     "TemperedSMCState",
+    "tempered_smc",
 ]

@@ -7,6 +7,7 @@ from typing import Callable
 
 import torch
 
+from mfm_tpu_torch.kernels.base import SamplingAlgorithm
 from mfm_tpu_torch.smc import ess as smc_ess
 from mfm_tpu_torch.smc import solvers, tempered
 
@@ -34,3 +35,26 @@ def build_kernel(
         return tempered_kernel(state, state.lmbda + delta, noise, mcmc_params)
 
     return kernel
+
+
+def adaptive_tempered_smc(
+    target,
+    mcmc_kernel_builder: Callable,
+    mcmc_init: Callable,
+    resample_fn: Callable,
+    target_ess: float,
+    num_mcmc_steps: int = 10,
+    root_solver: Callable = solvers.dichotomy,
+    waste_free_p: int = 0,
+) -> SamplingAlgorithm:
+    """``init(particles)``, ``step(noise, state, mcmc_params=None)`` with
+    ``noise`` an ``SMCStepNoise``."""
+    kernel = build_kernel(
+        target, mcmc_kernel_builder, mcmc_init, resample_fn, target_ess, num_mcmc_steps,
+        root_solver, waste_free_p,
+    )
+
+    def step_fn(noise, state, mcmc_params=None):
+        return kernel(state, noise, mcmc_params)
+
+    return SamplingAlgorithm(tempered.init, step_fn)

@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from mfm_tpu_torch.kernels.base import SamplingAlgorithm
 from mfm_tpu_torch.smc import base as smc_base
 
 
@@ -115,3 +116,23 @@ def build_kernel(
         return TemperedSMCState(smc_state.particles, smc_state.weights, state.lmbda + delta), info
 
     return kernel
+
+
+def tempered_smc(
+    target,
+    mcmc_kernel_builder: Callable,
+    mcmc_init: Callable,
+    resample_fn: Callable,
+    num_mcmc_steps: int = 10,
+    waste_free_p: int = 0,
+) -> SamplingAlgorithm:
+    """``init(particles)``, ``step(noise, state, lmbda, mcmc_params=None)``
+    with ``noise`` an ``SMCStepNoise``."""
+    kernel = build_kernel(
+        target, mcmc_kernel_builder, mcmc_init, resample_fn, num_mcmc_steps, waste_free_p
+    )
+
+    def step_fn(noise, state, lmbda, mcmc_params=None):
+        return kernel(state, lmbda, noise, mcmc_params)
+
+    return SamplingAlgorithm(init, step_fn)

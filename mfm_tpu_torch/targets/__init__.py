@@ -1,6 +1,6 @@
 """Target densities and the flow reference-distribution registry."""
 
-from mfm_tpu_torch.targets.base import GeometricPath, PriorReference, Target
+from mfm_tpu_torch.targets.base import GeometricPath, PriorReference, Target, as_logprob_fn
 from mfm_tpu_torch.targets.cox import LogGaussianCoxPines
 from mfm_tpu_torch.targets.funnel import Funnel, ManyWell
 from mfm_tpu_torch.targets.gaussian import (
@@ -38,6 +38,7 @@ def make_ref_dist(name: str, dim: int, device=None) -> Target:
 
 __all__ = [
     "Target",
+    "as_logprob_fn",
     "GeometricPath",
     "PriorReference",
     "LogGaussianCoxPines",

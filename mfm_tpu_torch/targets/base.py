@@ -125,6 +125,13 @@ class Target:
         raise NotImplementedError(f"{type(self).__name__} has no prior sampler")
 
 
+def as_logprob_fn(target: Target, beta=None) -> Callable:
+    """Single-sample ``(d,) -> scalar`` closure, optionally tempered."""
+    if beta is None:
+        return lambda x: target.log_prob(torch.atleast_1d(x))
+    return lambda x: target.tempered_log_prob(torch.atleast_1d(x), beta)
+
+
 class GeometricPath(Target):
     """A target with its tempering path re-split around q0 = N(0, I):
 

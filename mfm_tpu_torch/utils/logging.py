@@ -1,9 +1,9 @@
-"""Metric logging (counterpart of ``mfm_tpu.utils.logging``, without its
-``log_figures``, which waits with ``--plots``).
+"""Metric logging (counterpart of ``mfm_tpu.utils.logging``).
 
 JSONL on disk and a compact line on the log: ``log`` takes the per-chunk
 training metrics, ``summary`` the final metric row, ``log_per_iteration``
-one record per training iteration (``--full-metrics``). Weights & Biases
+one record per training iteration (``--full-metrics``), ``log_figures``
+the end-of-run figures as PNGs (``--plots``). Weights & Biases
 engages only when asked for and importable; without it a warning is logged
 and the JSONL stays. Records are the reference's, field for field.
 """
@@ -99,6 +99,25 @@ class MetricLogger:
             for k, v in metrics.items():
                 self._wandb.run.summary[k] = v
         logger.info("[%s] summary: %s", self.run_name, metrics)
+
+    def log_figures(self, figs: dict, subdir: str = "figs"):
+        """Save named matplotlib figures (name -> a figure or a list of
+        them) as PNGs under ``<run_dir>/<run_name>_<subdir>/`` and attach
+        them to wandb when it is on. Returns the saved paths."""
+        if not self.enabled:
+            return []
+        from mfm_tpu_torch.drivers.plots import save_figs
+
+        out_dir = os.path.join(self.run_dir or ".", f"{self.run_name}_{subdir}")
+        os.makedirs(out_dir, exist_ok=True)
+        paths = []
+        for name, fig_or_list in figs.items():
+            paths += save_figs(fig_or_list, os.path.join(out_dir, name))
+        self._write({"_figures": paths})
+        if self._wandb is not None:
+            self._wandb.log({os.path.basename(p): self._wandb.Image(p) for p in paths})
+        logger.info("[%s] figures: %s", self.run_name, ", ".join(paths))
+        return paths
 
     def log_per_iteration(self, stacked: dict):
         """One record per training iteration from the run's per-iteration

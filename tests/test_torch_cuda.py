@@ -874,3 +874,62 @@ def test_fab_hmc_gradient_on_phi_four_launches_k3(cuda):
     xc, acc_c = pc.transition(params, beta, step, x, moves, u)
     assert _rel_err(xg.cpu(), xc) <= 1e-4 and abs(float(acc_g) - float(acc_c)) <= 1e-6
     assert 0.0 < float(acc_c)
+
+
+def test_roofline_counts_every_kernel_launch(cuda):
+    """Each wrapper reports its hand count to an open roofline count, once
+    a launch: K1 with tangents, K2a, K2b (an MMD's three sums), K3 and the
+    score gate, two launches each."""
+    from mfm_tpu_torch.diagnostics import roofline
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    net = VectorFieldNet(64, torch.randn(16), (32,), (32,), (32,), act="tanh")
+    params = {k: v.to(cuda) for k, v in field_params(net).items()}
+    layout = field.field_layout(params, 16)
+    packed = field.pack_field_params(params, layout)
+    freqs = net.fourier_freqs.to(cuda)
+    x = torch.randn((100, 64), generator=gen, device=cuda)
+    t = torch.rand(100, generator=gen, device=cuda)
+    ex = torch.randn((8, 100, 64), generator=gen, device=cuda)
+    S = phi_four.phi_four_value_and_score(x)[1].contiguous()
+    Y = torch.randn((70, 64), generator=gen, device=cuda)
+
+    def calls():
+        for _ in range(2):
+            field.field_apply(packed, layout, "tanh", freqs, x, t, ex)
+            pairwise.stein_pairwise_sum(x, S, route="diff")
+            pairwise.rbf_mmd_sums(x, Y)
+            phi_four.phi_four_value_and_score(x)
+            phi_four.phi_four_score_gate(x, 0.1 * x, x.clone(), ex, ex.clone())
+
+    _, costs = roofline.count(calls)
+    hand = {
+        "field_apply": (field.field_flops(layout, 100, 8), field.field_bytes(layout, 100, 8)),
+        "stein_pairwise_sum": pairwise.stein_cost(100, 64)[1:],
+        "rbf_kernel_sum": pairwise.rbf_cost(100 * 101 // 2 + 70 * 71 // 2 + 100 * 70, 170, 64),
+        "phi_four_value_and_score": phi_four.phi_four_cost(100, 64),
+        "phi_four_score_gate": phi_four.score_gate_cost(100, 64, 8),
+    }
+    assert costs.kernels == {k: roofline.KernelCount(2, 2 * f, 2 * b)
+                             for k, (f, b) in hand.items()}
+    assert roofline.device_peaks(cuda)[1] == roofline.CEILINGS.get(
+        torch.cuda.get_device_name(cuda), {}).get("hbm")
+
+
+def test_pallas_metrics_flag_picks_the_path(cuda, tmp_path):
+    """On the card the eval takes K2a/K2b by default and with
+    --pallas-metrics, the plain statistics with --no-pallas-metrics."""
+    from mfm_tpu_torch import cli
+
+    tiny = ["--example", "4-mode", "--seed", "0", "--learning-iter", "4", "--num-chain", "8",
+            "--ode-steps", "2", "--set", "hidden_x=(8,)", "--set", "hidden_t=(8,)",
+            "--set", "hidden_xt=(8,)", "--set", "fourier_dim=4", "--set", "eval_iter=4",
+            "--run-dir", str(tmp_path)]
+    kernels = {}
+    for flag in ([], ["--pallas-metrics"], ["--no-pallas-metrics"]):
+        before = pairwise.stein_pairwise_sum.launches
+        (row,) = cli.main(tiny + flag)
+        kernels[" ".join(flag)] = (row["metrics_kernel"],
+                                   pairwise.stein_pairwise_sum.launches - before > 0)
+    assert kernels == {"": ("cuda", True), "--pallas-metrics": ("cuda", True),
+                       "--no-pallas-metrics": ("torch", False)}

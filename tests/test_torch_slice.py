@@ -346,7 +346,7 @@ def test_port_imports_no_jax():
     (["--example", "pines", "--do-fab", "--move-correct", "10"], "move-correct"),
     (["--example", "4-mode", "--defensive-alpha", "0.5", "--do-dds"], "defensive-alpha"),
     (["--example", "4-mode", "--move-correct", "10", "--do-smc"], "move-correct"),
-    (["--example", "4-mode", "--plots"], "not ported"),
+    (["--example", "4-mode", "--set", "mesh_shape=(2,)"], "not ported"),
 ])
 def test_cli_refuses_unported_paths(argv, match):
     from mfm_tpu_torch import cli
