@@ -55,7 +55,7 @@ own; any failure exits non-zero before the final line:
 8. a 4-mode run through the same entry point (reaches the MMD kernel), 50
    iterations;
 9. pines as shipped at full width (d=1600, 128 chains, trunks 1024, the bf16
-   field, Hutchinson, the 'prior' reference, Rademacher eval probes), 120
+   field, Hutchinson, the 'prior' reference, Rademacher eval probes), 60
    iterations: K2a at its eval;
 10. many-well (d=32, 120 iterations) and 11. funnel (d=10, 50): K2a, and
    K2b's general kernel for the MMD against exact draws;
@@ -72,15 +72,15 @@ own; any failure exits non-zero before the final line:
    leapfrog a K3 launch), step and mass adaptation frozen at iteration 30,
    50 iterations;
 20. the SMC baseline on 4-mode with HMC on the geometric path, waste-free
-   (P=4), 128 particles, 100 steps, 12,800 harvested samples (K2a, K2b);
-21. pines as shipped, 60 iterations, then 2 flow-annealed SMC steps
-   (--flow-smc 2) with latent MALA on 128 particles at d=1600 through the
+   (P=4), 128 particles, 50 steps, 12,800 harvested samples (K2a, K2b);
+21. pines as shipped, 30 iterations, then 1 flow-annealed SMC step
+   (--flow-smc 1) with latent MALA on 128 particles at d=1600 through the
    transport with its Rademacher probes (a forward and a reverse pass a
    move);
 22. the FAB baseline (--do-fab) on phi-four: batch 1024, d=64, 8 spline
    coupling layers with 128x128 gelu conditioners (configs/fab/many_well.yaml
    with the preset's hidden_xt), an HMC bridge of K=4 (every gradient of
-   log gamma an autograd pass through the flow and K3's analytic score), 6
+   log gamma an autograd pass through the flow and K3's analytic score), 3
    epochs after 3 prefill passes;
 23. the flowMC baseline (--do-flowmc) on phi-four: 1024 chains, 5 rounds
    of 10 MALA steps, 10 NLL epochs and 10 flow independence-MH moves;
@@ -88,8 +88,8 @@ own; any failure exits non-zero before the final line:
    steps of a 128-wide control net gated by the detached K3 score, 10
    iterations (at the preset's learning rate its chain blows up within ten
    iterations, in the reference too: a finite row far off the target);
-25. FAB on 4-mode, 10 epochs, 12,800 eval samples (K2a, K2b);
-26. pines as shipped, 60 iterations, then 100 self-tuning MALA moves on the
+25. FAB on 4-mode, 5 epochs, 12,800 eval samples (K2a, K2b);
+26. pines as shipped, 30 iterations, then 100 self-tuning MALA moves on the
    IS-resampled set (--move-correct 100);
 27. many-well, 120 iterations, the IS proposal mixed with 10 % N(0, 4 I)
    (--defensive-alpha 0.9);
@@ -97,9 +97,9 @@ own; any failure exits non-zero before the final line:
    MALA moves on the annealed ensemble (--flow-smc 1 --move-correct 50);
 29-32. the CLI's 10 replication seeds (no --seed) as one seed sweep
    (--vmap-seeds) at full width, each seed then evaluated on 1,280 samples
-   (eval_iter=10): 4-mode 100 iterations (K2a, K2b), phi-four as shipped
-   100 (K3, the gate, K2a), phi-four on the fused field 100 (K1 on its seed
-   axis, S=10, one launch a stage; K3, the gate, K2a), pines 40 (10 x 128
+   (eval_iter=10): 4-mode 25 iterations (K2a, K2b), phi-four as shipped
+   25 (K3, the gate, K2a), phi-four on the fused field 100 (K1 on its seed
+   axis, S=10, one launch a stage; K3, the gate, K2a), pines 10 (10 x 128
    chains at d=1600, 1024-wide trunks; K2a); each prints the sweep's host
    ms an iteration, per seed, and its training launches an iteration
    beside the single-seed phase of the same example (5, 7, 8, 9), and
@@ -115,14 +115,14 @@ own; any failure exits non-zero before the final line:
    24 RK4 steps, exact divergence, relu, no score gate): every move's
    transport runs on K1, every loss (-log q_flow of the chains, a gradient
    through the inverse transport) on the module field, every density and
-   score on K3. 35 ATESS cross-chain (256 chains, 10 steps, one Adam step
+   score on K3. 35 ATESS cross-chain (256 chains, 5 steps, one Adam step
    a refit), then one TESS step at its first angle with the fitted flow on
    K1 and on the module field, on the same noise; 36 ATESS by parallel ECA
-   (4 batches of 64, 8 steps), then one more update in which the holding
+   (4 batches of 64, 4 steps), then one more update in which the holding
    batch must keep its chains bit for bit; 37 MSC (256 chains, 4 CIS
-   candidates: 1,280 rows a transport, 10 steps), then one CIS step's
+   candidates: 1,280 rows a transport, 5 steps), then one CIS step's
    log-weights on K1 against the module field; 38 MSC-MALA (256 chains, 4
-   MALA steps at 1e-4 a step, 10 steps); 39 SVGD (sgd) and coin-SVGD
+   MALA steps at 1e-4 a step, 5 steps); 39 SVGD (sgd) and coin-SVGD
    (COCOB), 1,024 particles from phi-four's initial positions, 300 steps
    each, with the KSD-U of each set and of the start (K2a); 40 TESS with
    the identity flow on N(0, I) at d=64 (4,096 chains, 200 steps, the
@@ -147,7 +147,29 @@ own; any failure exits non-zero before the final line:
 43. ``python -m mfm_tpu_torch.parallel.run_seeds`` as two processes on the
    card (gloo for the rows; 2 seeds, 20 iterations): one aggregate on both,
    equal within 1e-2 to the same seeds run one after another here (the
-   metric columns), under a time limit of its own that kills the children.
+   metric columns), under a time limit of its own that kills the children;
+44-46. the chain mesh (``parallel.mesh``), two ranks sharing this card
+   under gloo, each launcher in a session of its own killed whole on a
+   failure or past its limit; the ranks' launches count on the main path.
+   44 ``python -m mfm_tpu_torch.parallel.run_mfm --example phi-four`` (the
+   reference demo's phi-four: 1,024 chains, 20 iterations): one state
+   digest and one chunks digest on both ranks, the final loss, beta and
+   mean acceptance within 1e-3 of the same run in this process, K3
+   launched on each rank (no flow step comes before iteration 101, so no
+   score gate); 45 the CLI under torchrun with ``--set
+   mesh_shape=(1,2)`` on phi-four on the fused field (50 iterations,
+   eval_iter=10; K1, K3, the gate, K2a at rank 0's eval): the training
+   metrics and the flow row within 1e-2 of the same arguments in this
+   process (the IS row's differences reported), each rank's host ms an
+   iteration, and the gloo round trip of an all-reduce of the gradient's
+   size; 46, on phase 45's ranks (one torchrun for both), ``--do-smc``
+   on phi-four with ``mesh_shape=(2,)`` (the distributed resampler and the
+   ring gather, 200 steps) against one process that replays the ranks'
+   ancestors: every step's log Z increment and lambda equal, log Z and
+   lambda within 1e-3, and the single-device resampler on the same weights
+   differing only by off-by-ones at float32 ties; and two steps of
+   ``atess(mesh=)`` by parallel ECA (4 batches of 64) on the ``ensemble``
+   axis against the unsharded call, positions within 1e-4.
 
 Every CLI phase logs under a temporary --run-dir. Phase 3 also holds K1's
 seed axis (S=10 nets on 10 x 1024 rows, 64 tangents, one launch) to its
@@ -910,6 +932,10 @@ def instrument_training(counters):
             out = fn(*args, **kwargs)
             TRAINING["launches"] = {f.__name__: f.launches - b for f, b in zip(counters, before)}
             TRAINING["train_time"] = out.train_time
+            if out.metrics and out.metrics["loss"].ndim == 1:  # one run, not a sweep
+                import torch
+
+                TRAINING["summary"] = training_summary(torch, out)
             return out
         return recorded
 
@@ -1052,8 +1078,8 @@ def phase_resume(torch, ckpt_dir):
 # The library phases (35-40): chains, steps and particles (depth; the
 # widths and d are phi-four's preset: d=64, trunks (128, 128) x 3, F=128,
 # 24 RK4 steps, exact divergence, relu, fp32, no score gate)
-LIB = dict(d=64, width=128, fourier=128, chains=256, atess_steps=10, eca_batches=4,
-           eca_batch_size=64, eca_steps=8, msc_steps=10, cis_samples=4, mala_samples=4,
+LIB = dict(d=64, width=128, fourier=128, chains=256, atess_steps=5, eca_batches=4,
+           eca_batch_size=64, eca_steps=4, msc_steps=5, cis_samples=4, mala_samples=4,
            mala_step=1e-4, svgd_particles=1024, svgd_steps=300, tess_chains=4096,
            tess_steps=200, cis_chains=512, snpe_sims=4096)
 
@@ -1636,6 +1662,393 @@ def phase_seeds(torch, limit_s=300):
     return dict(wall=wall, max_rel_diff=worst)
 
 
+# ---------------------------------------------------------------- the mesh
+# Phases 44-46 run ranks of a chain mesh as processes beside this one, all
+# on this card (gloo: NCCL cannot put two ranks on one card). A rank of
+# ``torchrun`` runs this file with ``--mesh-worker KIND OUT_DIR [cli args]``
+# (``mesh_worker``) and writes what it measured to OUT_DIR.
+MESH = dict(ranks=2, run_mfm_iters=20, run_mfm_chunk=5, cli_iters=50, smc_steps=200,
+            atess_batches=4, atess_batch_size=64, atess_steps=2, allreduce_reps=50)
+
+
+def run_ranks(cmd, label, limit_s):
+    """Run ``cmd`` in a session of its own, killed whole past ``limit_s`` or
+    on a failure; (stdout, wall)."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{label}: the ranks did not finish in {limit_s} s; killed")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode:
+        fail(f"{label}: exited {proc.returncode}: {err[-2500:]}")
+    return out, time.perf_counter() - t0
+
+
+def torchrun(out_dir, spec, label, limit_s=300):
+    """``mesh_worker`` on MESH['ranks'] ranks under torchrun with ``spec``
+    (the CLI arguments of its runs); every rank's record, in rank order,
+    and the wall."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={MESH['ranks']}", os.path.abspath(__file__), "--mesh-worker",
+           out_dir, json.dumps(spec)]
+    _, wall = run_ranks(cmd, label, limit_s)
+    recs = []
+    for r in range(MESH["ranks"]):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            recs.append(json.load(fh))
+    return recs, wall
+
+
+# the ranks' records of phases 45-46, which share one torchrun
+MESH_RANKS = {}
+
+
+def add_launches(counters, recs):
+    """The launches the ranks made, counted on the main path; the sum."""
+    total = {f.__name__: sum(r["launches"][f.__name__] for r in recs) for f in counters}
+    for f in counters:
+        f.launches += total[f.__name__]
+    return total
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def training_summary(torch, run):
+    """What a phase compares of a training run: the last loss and beta, the
+    run's mean acceptance, and its host ms an iteration."""
+    m = run.metrics
+    return dict(loss=float(m["loss"][-1]), beta=float(m["beta"][-1]),
+                acceptance_mean=float(torch.nanmean(m["acceptance_mean"])),
+                host_ms=1e3 * run.train_time / m["loss"].shape[-1])
+
+
+def phase_mesh_run_mfm(torch, counters):
+    """44: ``python -m mfm_tpu_torch.parallel.run_mfm --example phi-four``
+    (the reference demo's phi-four: d=64, 1,024 chains, step 1e-4, 20
+    iterations in chunks of 5) as two ranks on this card: both print one
+    state digest and one chunks digest; the final loss, beta and mean
+    acceptance within 1e-3 relative of the same configuration run in this
+    process; each rank launched K3. Its 20 iterations are all MALA-type (the
+    first flow step is iteration 101), so no transport runs and the score
+    gate does not launch here; phases 45-46 launch it."""
+    from mfm_tpu_torch.parallel.run_mfm import make_config, summary, train
+
+    cmd = [sys.executable, "-m", "mfm_tpu_torch.parallel.run_mfm", "--example", "phi-four",
+           "--num-processes", str(MESH["ranks"]), "--device", "cuda",
+           "--learning-iter", str(MESH["run_mfm_iters"]), "--chunk-size",
+           str(MESH["run_mfm_chunk"]), "--coordinator",
+           f"localhost:{free_port()}", "--timeout", "240"]
+    out, wall = run_ranks(cmd, "44", 300)
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    if len(lines) != MESH["ranks"]:
+        fail(f"44: {len(lines)} lines from {MESH['ranks']} ranks")
+    total = add_launches(counters, lines)
+    cfg = make_config("phi-four", 1, MESH["run_mfm_iters"], MESH["run_mfm_chunk"])
+    run, collector, _ = train("phi-four", cfg, "cuda")
+    one = summary(run, cfg, collector, {}, 0, 1)
+    diffs = {k: rel(lines[0][k], one[k]) for k in ("final_loss", "final_beta", "mean_acceptance")}
+    print(f"[44 run_mfm] {MESH['ranks']} ranks, wall {wall:.1f} s: "
+          f"{json.dumps([{k: v for k, v in r.items() if k != 'launches'} for r in lines])}; "
+          f"one process: loss {one['final_loss']}, beta {one['final_beta']}, acceptance "
+          f"{one['mean_acceptance']}, {one['steady_iters_per_sec']} it/s; relative differences "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})} (tol 1e-3); ranks' "
+          f"launches {json.dumps(total)}", flush=True)
+    if not (len({r["state_digest"] for r in lines}) == 1
+            and len({r["chunks_digest"] for r in lines}) == 1):
+        fail("44: the ranks' digests differ")
+    if not all(v <= 1e-3 for v in diffs.values()):
+        fail("44: the sharded run disagrees with the run in one process")
+    if not all(r["launches"]["phi_four_value_and_score"] for r in lines):
+        fail("44: a rank launched no K3")
+    return dict(wall=wall, diffs=diffs)
+
+
+CLI_ARGV = ["--seed", "0", "--example", "phi-four", "--learning-iter", str(MESH["cli_iters"]),
+            "--set", "eval_iter=10", "--set", "field_precision=highest", "--set",
+            "pallas_field=true"]
+SMC_ARGV = ["--seed", "0", "--example", "phi-four", "--do-smc", "--learning-iter",
+            str(MESH["smc_steps"]), "--set", "eval_iter=4"]
+
+
+def phase_mesh_cli(torch, counters, run_dir, out_dir):
+    """45: the CLI under torchrun (``--set mesh_shape=(1,2)``) on phi-four on
+    the fused field (K1, K3, the gate; K2a at rank 0's eval), 50
+    iterations, eval_iter=10, against the same arguments in this process:
+    the training metrics (last loss and beta, mean acceptance) and the flow
+    row within 1e-2 relative; the IS row's differences reported, not
+    gated (at this depth it rests on 1-2 points). Also: each rank's host ms
+    an iteration at 512 chains against 1,024 here, and the gloo round trip
+    of an all-reduce of the gradient's size from the card. The same ranks
+    then run phase 46's work (one torchrun for both: a rank takes seconds
+    to reach the card), whose launches count there."""
+    run = ["--run-dir", run_dir]
+    recs, wall = torchrun(out_dir, {"cli": [*CLI_ARGV, *run, "--set", "mesh_shape=(1,2)"],
+                                    "smc": [*SMC_ARGV, *run, "--set", "mesh_shape=(2,)"]}, "45")
+    MESH_RANKS.update(recs=recs, wall=wall, out_dir=out_dir)
+    total = add_launches(counters, [r["cli"] for r in recs])
+    TRAINING.clear()
+    one = run_cli(CLI_ARGV, "45 phi-four fused one process", run_dir)
+    one_train = TRAINING["summary"]
+    row, train = recs[0]["cli"]["rows"][0], recs[0]["cli"]["training"]
+    flow_diff = {k: rel(row[k], one[k]) for k in ROW[:4]}
+    is_diff = {k: rel(row[k], one[k]) for k in ROW[4:]}
+    train_diff = {k: rel(train[k], one_train[k]) for k in ("loss", "beta", "acceptance_mean")}
+    fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})
+    print(f"[45 cli mesh] 2 ranks (1, 2), wall {wall:.1f} s for phases 45-46 (rank 0: group "
+          f"after {recs[0]['t_group']:.1f} s, the CLI run {recs[0]['t_cli']:.1f} s, 46's SMC "
+          f"{recs[0]['t_smc']:.1f} s and ATESS {recs[0]['t_atess']:.1f} s); rank 0's row "
+          f"{json.dumps(row)}; training {fmt(train_diff)}, flow row {fmt(flow_diff)} (tol 1e-2); "
+          f"IS row {fmt(is_diff)} (reported, is_ess {row['is_ess']:.3f} against "
+          f"{one['is_ess']:.3f}); host ms an iteration: rank 0 at 512 chains "
+          f"{train['host_ms']:.2f}, rank 1 {recs[1]['cli']['training']['host_ms']:.2f}, one "
+          f"process at 1,024 {one_train['host_ms']:.2f}; gloo all-reduce of "
+          f"{recs[0]['allreduce']['numel']} floats from the card {recs[0]['allreduce']['ms']:.3f} "
+          f"ms a round trip; ranks' launches {json.dumps(total)}", flush=True)
+    if not all(math.isfinite(v) for v in row.values() if isinstance(v, float)):
+        fail("45: non-finite row")
+    if not all(v <= 1e-2 for v in (*flow_diff.values(), *train_diff.values())):
+        fail("45: the sharded CLI run disagrees with the run in one process")
+    for k in ("field_apply", "phi_four_value_and_score", "phi_four_score_gate"):
+        if not all(r["cli"]["launches"][k] for r in recs):
+            fail(f"45: a rank launched no {k}")
+    if not recs[0]["cli"]["launches"]["stein_pairwise_sum"]:
+        fail("45: rank 0's eval launched no K2a")
+    return dict(wall=wall, train=train_diff, flow=flow_diff, is_row=is_diff,
+                host_ms=[r["cli"]["training"]["host_ms"] for r in recs],
+                one_host_ms=one_train["host_ms"], allreduce=recs[0]["allreduce"])
+
+
+def atess_case(torch, mesh=None):
+    """Two steps of ``atess(..., eca=True)`` on phi-four at its preset's
+    width (phase 36's flows, MESH's batches); under ``mesh`` on its
+    ``ensemble`` axis. The gathered positions and fitted parameters."""
+    from mfm_tpu_torch.adaptation import atess
+    from mfm_tpu_torch.flows import adam
+    from mfm_tpu_torch.kernels import tess
+    from mfm_tpu_torch.parallel.mesh import shard_chains
+
+    lib = library_flows(torch)
+    nb, bs, d = MESH["atess_batches"], MESH["atess_batch_size"], LIB["d"]
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    x = torch.randn((nb, bs, d), generator=gen, device="cuda")
+    noise = [[tess.draw_noise(gen, bs, d) for _ in range(nb)] for _ in range(MESH["atess_steps"])]
+    if mesh is not None:
+        x = shard_chains(x, mesh)
+    algo = atess(lib["target"].log_prob, adam(1e-3), lib["params"], lib["flow"], lib["loss"], nb,
+                 bs, num_steps=MESH["atess_steps"], eca=True, mesh=mesh)
+    state, _, (params, _) = algo.run(noise, x)
+    gather = (lambda v: v) if mesh is None else mesh.all_gather_rows
+    return gather(state.states.position), {k: gather(v) for k, v in params.items()}
+
+
+# every SMC step of the last run_smc (``instrument_smc``): its log Z
+# increment, lambda and the ancestors of every rank; and with a replay, what
+# the single-device resampler chose from the weights and uniform it got
+SMC_STEPS, REPLAYED = [], []
+
+
+def instrument_smc(replay=None):
+    """Wrap ``drivers.smc_run.build_smc`` so that ``run_smc``'s steps record
+    themselves in ``SMC_STEPS`` (a collective on every rank of a mesh: the
+    ancestors are gathered). With ``replay`` (another run's SMC_STEPS) the
+    resampler returns that run's ancestors, step by step, and records in
+    ``REPLAYED`` what the single-device resampler would have chosen. Returns
+    the function that undoes both; each step reads its numbers back, so no
+    other phase runs under it."""
+    from mfm_tpu_torch.drivers import smc_run
+    from mfm_tpu_torch.smc import resampling
+
+    build, get_resampler = smc_run.build_smc, resampling.get_resampler
+
+    def recorded(*args, **kwargs):
+        pieces = build(*args, **kwargs)
+        SMC_STEPS.clear()
+        gather = (lambda v: v) if pieces.mesh is None else pieces.mesh.all_gather_rows
+
+        def step_fn(carry, noise):
+            carry, info = pieces.step_fn(carry, noise)
+            SMC_STEPS.append(dict(incr=float(info.log_likelihood_increment),
+                                  lmbda=float(carry.state.lmbda),
+                                  ancestors=gather(info.ancestors).cpu()))
+            return carry, info
+
+        return pieces._replace(step_fn=step_fn)
+
+    def replaying(name):
+        single, steps = get_resampler(name), iter(replay)
+        REPLAYED.clear()
+
+        def resample(u, weights, num_samples):
+            theirs = next(steps)["ancestors"].to(weights.device)
+            REPLAYED.append(dict(mine=single(u, weights, num_samples).cpu(),
+                                 theirs=theirs.cpu(), weights=weights.cpu(), u=u.cpu()))
+            return theirs
+
+        return resample
+
+    smc_run.build_smc = recorded
+    if replay is not None:
+        resampling.get_resampler = replaying
+
+    def restore():
+        smc_run.build_smc, resampling.get_resampler = build, get_resampler
+
+    return restore
+
+
+def resampler_ties(torch, replayed):
+    """Where the sharded run's ancestors and the single-device resampler's
+    differ on the same weights and uniform: (steps, slots, whether every
+    difference is an off-by-one at a float32 tie, its grid point within
+    1e-6 of the cumulative weight between the two;
+    ``mfm_tpu/smc/distributed.py:38-46``)."""
+    steps = slots = 0
+    ok = True
+    for r in replayed:
+        diff = r["mine"] != r["theirs"]
+        if not bool(diff.any()):
+            continue
+        n = r["weights"].shape[0]
+        cum = torch.cumsum(r["weights"].double(), 0)
+        grid = (torch.arange(n, dtype=torch.float64) + r["u"].double()) / n
+        lo = torch.minimum(r["mine"], r["theirs"])[diff]
+        steps, slots = steps + 1, slots + int(diff.sum())
+        ok = ok and bool(((r["mine"] - r["theirs"])[diff].abs() == 1).all()
+                         and ((grid[diff] - cum[lo]).abs() < 1e-6).all())
+    return steps, slots, ok
+
+
+def phase_mesh_smc_atess(torch, counters, run_dir):
+    """46: on phase 45's ranks: ``--do-smc`` on phi-four with
+    ``mesh_shape=(2,)`` (the distributed resampler and the ring gather, 200
+    steps) against the same arguments in this process, with the sharded
+    run's ancestors replayed here (``instrument_smc``): every step's log Z
+    increment and lambda equal within 1e-6, log Z and lambda of the two
+    rows within 1e-3; and on every step's weights, the sharded ancestors
+    against the single-device resampler's: equal but for off-by-ones at
+    float32 ties (without the replay one such tie sets two runs apart, as
+    in the reference). Then two steps of ``atess(mesh=)`` by parallel ECA
+    (4 batches of 64) on the ``ensemble`` axis against the unsharded call,
+    positions within 1e-4."""
+    if not MESH_RANKS:
+        fail("46: phase 45's ranks did not run")
+    recs = MESH_RANKS["recs"]
+    total = add_launches(counters, [{"launches": {k: r["launches"][k] - r["cli"]["launches"][k]
+                                                  for k in r["launches"]}} for r in recs])
+    sharded = torch.load(os.path.join(MESH_RANKS["out_dir"], "smc_steps.pt"), weights_only=True)
+    restore = instrument_smc(replay=sharded)
+    try:
+        one = run_cli(SMC_ARGV, "46 phi-four SMC one process, the ranks' ancestors", run_dir)
+    finally:
+        restore()
+    steps_equal = len(sharded) == len(SMC_STEPS) == len(REPLAYED) and all(
+        a["lmbda"] == b["lmbda"] and rel(a["incr"], b["incr"]) <= 1e-6
+        for a, b in zip(sharded, SMC_STEPS))
+    tie_steps, tie_slots, ties_ok = resampler_ties(torch, REPLAYED)
+    row = recs[0]["smc"]["rows"][0]
+    smc_diff = {k: rel(row[k], one[k]) for k in ("log_z", "lmbda")}
+    t0 = time.perf_counter()
+    pos, params = atess_case(torch)
+    one_atess_s = time.perf_counter() - t0
+    got = torch.load(os.path.join(MESH_RANKS["out_dir"], "atess.pt"), weights_only=True)
+    ex = errors(torch, got["pos"].to(pos.device), pos)
+    ep = max(errors(torch, got["params"][k].to(v.device), v)[0] for k, v in params.items())
+    print(f"[46 smc and atess mesh] on phase 45's ranks (SMC {recs[0]['t_smc']:.1f} s, ATESS "
+          f"{recs[0]['t_atess']:.1f} s; ATESS here {one_atess_s:.1f} s): SMC log_z "
+          f"{row['log_z']:.6f} against {one['log_z']:.6f}, lmbda {row['lmbda']:.6f} against "
+          f"{one['lmbda']:.6f}: relative "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in smc_diff.items()})} (tol 1e-3); "
+          f"{len(sharded)} steps' increments and lambda equal: {steps_equal}; the single-device "
+          f"resampler differs at {tie_slots} slot(s) of {tie_steps} step(s), each an off-by-one "
+          f"at a float32 tie: {ties_ok}; atess positions max abs {ex[0]:.3e} (tol 1e-4), "
+          f"parameters {ep:.3e}; ranks' launches {json.dumps(total)}", flush=True)
+    if not (steps_equal and all(v <= 1e-3 for v in smc_diff.values())):
+        fail("46: the sharded SMC run disagrees with the run in one process")
+    if not ties_ok:
+        fail("46: the distributed resampler differs from the single-device one beyond ties")
+    if not ex[0] <= 1e-4:
+        fail("46: the sharded ATESS disagrees with the unsharded call")
+    if not (total["phi_four_value_and_score"] and total["field_apply"]):
+        fail("46: the ranks launched no K3 or no K1")
+    return dict(smc=smc_diff, tie_steps=tie_steps, tie_slots=tie_slots, atess_pos=ex[0],
+                atess_params=ep)
+
+
+def mesh_worker(out_dir, spec):
+    """One rank of phases 45-46 under torchrun: the CLI's run of
+    ``spec["cli"]`` with the training recorded, the all-reduce's round trip,
+    the CLI's SMC run of ``spec["smc"]``, then the sharded ATESS; writes
+    ``rank<r>.json`` (and ``atess.pt`` from rank 0), with the launches and
+    the seconds to the group and of each part."""
+    t_start = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+
+    from mfm_tpu_torch import cli
+    from mfm_tpu_torch.ops import field, pairwise, phi_four
+    from mfm_tpu_torch.parallel.mesh import init_from_env, make_mesh
+
+    spec = json.loads(spec)
+    counters = (field.field_apply, pairwise.stein_pairwise_sum, pairwise.rbf_kernel_sum,
+                phi_four.phi_four_value_and_score, phi_four.phi_four_score_gate)
+    launches = lambda: {f.__name__: f.launches for f in counters}
+    rank, world, _, dev = init_from_env("cuda")
+    rec = {"rank": rank, "t_group": time.perf_counter() - t_start}
+    try:
+        instrument_training(counters)
+        t0 = time.perf_counter()
+        rec["cli"] = dict(rows=cli.main(spec["cli"]), training=TRAINING.get("summary"))
+        rec["cli"]["launches"] = launches()
+        rec["t_cli"] = time.perf_counter() - t0
+
+        from mfm_tpu_torch.config import preset
+        from mfm_tpu_torch.drivers.mfm import build_mfm
+        from mfm_tpu_torch.targets import PhiFour
+
+        mesh = make_mesh((world,), device=dev)
+        pieces = build_mfm(PhiFour(64), preset("phi-four"), dev, torch.Generator())
+        n = sum(v.numel() for v in pieces.net.parameters())
+        buf = torch.ones(n, device=dev)
+        mesh.all_reduce_sum(buf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH["allreduce_reps"]):
+            mesh.all_reduce_sum(buf)
+        torch.cuda.synchronize()
+        rec["allreduce"] = dict(numel=n, ms=1e3 * (time.perf_counter() - t0)
+                                / MESH["allreduce_reps"])
+
+        instrument_smc()
+        t0 = time.perf_counter()
+        rec["smc"] = dict(rows=cli.main(spec["smc"]))
+        rec["t_smc"] = time.perf_counter() - t0
+        if rank == 0:
+            torch.save(SMC_STEPS, os.path.join(out_dir, "smc_steps.pt"))
+        t0 = time.perf_counter()
+        pos, params = atess_case(torch, make_mesh((world,), ("ensemble",), device=dev))
+        rec["t_atess"] = time.perf_counter() - t0
+        if rank == 0:
+            torch.save({"pos": pos.cpu(), "params": {k: v.cpu() for k, v in params.items()}},
+                       os.path.join(out_dir, "atess.pt"))
+        rec["launches"] = launches()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(rec, fh)
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     try:
         import torch
@@ -1669,7 +2082,7 @@ def main():
         (["--example", "phi-four", "--learning-iter", "300", *fused],
          "7 phi-four fused field", (K1, K3, GATE, K2A)),
         (["--example", "4-mode", "--learning-iter", "50"], "8 4-mode", (K2A, K2B)),
-        (["--example", "pines", "--learning-iter", "120"], "9 pines", (K2A,)),
+        (["--example", "pines", "--learning-iter", "60"], "9 pines", (K2A,)),
         (["--example", "many-well", "--learning-iter", "120"], "10 many-well", (K2A, K2B)),
         (["--example", "funnel", "--learning-iter", "50"], "11 funnel", (K2A, K2B)),
         (["--example", "many-well", "--learning-iter", "120", *fused],
@@ -1686,19 +2099,19 @@ def main():
         (["--example", "phi-four", "--mcmc-kernel", "nuts", "--learning-iter", "50"],
          "19 phi-four NUTS", (K3, GATE, K2A)),
         (["--example", "4-mode", "--do-smc", "--mcmc-kernel", "hmc", "--set", "smc_path=geometric",
-          "--set", "waste_free_p=4", "--learning-iter", "100"], "20 4-mode HMC waste-free SMC",
+          "--set", "waste_free_p=4", "--learning-iter", "50"], "20 4-mode HMC waste-free SMC",
          (K2A, K2B)),
-        (["--example", "pines", "--learning-iter", "60", "--flow-smc", "2"], "21 pines flow-SMC",
+        (["--example", "pines", "--learning-iter", "30", "--flow-smc", "1"], "21 pines flow-SMC",
          (K2A,)),
-        (["--example", "phi-four", "--do-fab", "--learning-iter", "6"], "22 phi-four FAB",
+        (["--example", "phi-four", "--do-fab", "--learning-iter", "3"], "22 phi-four FAB",
          (K3, K2A)),
         (["--example", "phi-four", "--do-flowmc", "--learning-iter", "50"],
          "23 phi-four flowMC", (K3, K2A)),
         (["--example", "phi-four", "--do-dds", "--learning-iter", "10"], "24 phi-four DDS",
          (K3, K2A)),
-        (["--example", "4-mode", "--do-fab", "--learning-iter", "10"], "25 4-mode FAB",
+        (["--example", "4-mode", "--do-fab", "--learning-iter", "5"], "25 4-mode FAB",
          (K2A, K2B)),
-        (["--example", "pines", "--learning-iter", "60", "--move-correct", "100"],
+        (["--example", "pines", "--learning-iter", "30", "--move-correct", "100"],
          "26 pines move correction", (K2A,)),
         (["--example", "many-well", "--learning-iter", "120", "--defensive-alpha", "0.9"],
          "27 many-well defensive", (K2A, K2B)),
@@ -1710,13 +2123,13 @@ def main():
     # beside its single-seed phase
     seeds_eval = ["--set", "eval_iter=10"]
     seed_phases = [
-        (["--example", "4-mode", "--learning-iter", "100", *seeds_eval],
+        (["--example", "4-mode", "--learning-iter", "25", *seeds_eval],
          "29 4-mode seeds", (K2A, K2B), "8 4-mode"),
-        (["--example", "phi-four", "--learning-iter", "100", *seeds_eval],
+        (["--example", "phi-four", "--learning-iter", "25", *seeds_eval],
          "30 phi-four seeds", (K3, GATE, K2A), "5 phi-four"),
         (["--example", "phi-four", "--learning-iter", "100", *fused, *seeds_eval],
          "31 phi-four fused field seeds", (K1, K3, GATE, K2A), "7 phi-four fused field"),
-        (["--example", "pines", "--learning-iter", "40", *seeds_eval], "32 pines seeds",
+        (["--example", "pines", "--learning-iter", "10", *seeds_eval], "32 pines seeds",
          (K2A,), "9 pines"),
     ]
     import tempfile
@@ -1756,6 +2169,13 @@ def main():
                 ("42 figures", (), lambda: phase_figures(torch, tmp)),
                 ("43 seeds", (K2A, K2B), lambda: phase_seeds(torch))):
             library_phase(torch, counters, label, must, fn)
+        for label, fn in (
+                ("44 run_mfm mesh", lambda: phase_mesh_run_mfm(torch, counters)),
+                ("45 cli mesh", lambda: phase_mesh_cli(torch, counters, run_dir, f"{tmp}/45")),
+                ("46 smc and atess mesh",
+                 lambda: phase_mesh_smc_atess(torch, counters, run_dir))):
+            os.makedirs(f"{tmp}/{label.split()[0]}", exist_ok=True)
+            library_phase(torch, counters, label, (), fn)
     report["field_apply"]["seed_axis"]["sweep_launches_per_iteration"] = sweeps[
         "31 phi-four fused field seeds"]["launches_per_it"][K1]
     launches = {f.__name__: f.launches for f in counters}
@@ -1787,4 +2207,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2], sys.argv[3])
+    else:
+        main()

@@ -8,6 +8,10 @@ chains' positions, cross-chain or by parallel ECA. ``flow(u, params) ->
 caller's: on the card the move's transport can run on the fused field
 kernel, while the loss, which needs a gradient through a transport, runs
 on the module field (``flows/cnf.py``).
+
+``mesh`` shards the batches of parallel ECA over its ``ensemble`` axis
+(``mfm_tpu/adaptation/atess.py:31,75``; ``chain_adaptation.parallel_eca``).
+Cross-chain adaptation has no sharded path and refuses a mesh.
 """
 
 from typing import Callable
@@ -29,7 +33,9 @@ def base(
     mesh=None,
 ):
     """The adaptation loop ATESS and MSC share: ``(init, update, final)``."""
-    chain_adaptation.check_mesh(mesh)
+    if mesh is not None and not eca:
+        raise ValueError("a mesh shards parallel ECA's batches; cross-chain adaptation "
+                         "(eca=False) has no sharded path")
 
     def parameter_gn(batch_state, step, params, opt_state):
         (params, opt_state), _ = optimize(
@@ -38,7 +44,7 @@ def base(
 
     if eca:
         init, update = chain_adaptation.parallel_eca(
-            kernel_factory, parameter_gn, num_batch, batch_size)
+            kernel_factory, parameter_gn, num_batch, batch_size, mesh)
     else:
         init, update = chain_adaptation.cross_chain(
             kernel_factory, parameter_gn, num_batch * batch_size)
@@ -73,7 +79,9 @@ def atess(
     ``pullback_positions`` is (num_batch * batch_size, d), or (num_batch,
     batch_size, d) with ``eca``. ``noise`` is a generator, or a sequence of
     ``num_steps`` per-step noises: a ``tess.TESSNoise`` each without
-    ``eca``, a sequence of ``num_batch`` of them with it.
+    ``eca``, a sequence of ``num_batch`` of them with it. Under ``mesh``
+    (with ``eca``) the positions are this rank's batches and the noise is
+    injected; the returned parameters are its batches'.
     """
     kernel = tess.build_kernel()
 
@@ -87,7 +95,9 @@ def atess(
         kernel_factory, optimizer, loss_fn, num_batch, batch_size, n_opt_iter, eca, mesh)
     one = (init_params, optimizer.init(init_params))
     # with eca, one copy of the params and the optimizer state for each batch
-    params0 = stack([one] * num_batch) if eca else one
+    ens = chain_adaptation.ensemble_mesh(mesh, num_batch)
+    n_local = num_batch if ens is None else num_batch // ens.size
+    params0 = stack([one] * n_local) if eca else one
 
     def run(noise, pullback_positions):
         state, params = init_adapt(tess.init(pullback_positions)), params0

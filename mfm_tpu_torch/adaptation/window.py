@@ -9,6 +9,12 @@ device, so a caller never reads the step size back. The Welford count is a
 Python number: it is the same in every run (it grows by the batch size per
 update), and a caller decides a mass refresh from it on the host without a
 device read.
+
+Under a chain mesh (``mesh``, a ``parallel.mesh.ChainMesh``) each rank
+holds its rows of the ensemble: the mean acceptance is taken over the
+gathered acceptances (one scalar a chain), and Welford pools the
+positions of all ranks, from two all-reduces of d floats a batch (its sum,
+then its squares about the pooled mean).
 """
 
 from typing import Callable, NamedTuple
@@ -61,13 +67,26 @@ def welford_init(dim, device=None) -> WelfordState:
     return WelfordState(torch.zeros(dim, device=device), torch.zeros(dim, device=device), 0)
 
 
-def welford_update_batch(state: WelfordState, batch: torch.Tensor) -> WelfordState:
+def global_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean of ``x`` over every rank's rows (of the whole tensor without
+    a mesh): of the gathered values (a few scalars a chain), so that it has
+    one process's bits, which dual averaging would otherwise amplify."""
+    return torch.mean(x if mesh is None else mesh.all_gather_rows(x))
+
+
+def welford_update_batch(state: WelfordState, batch: torch.Tensor, mesh=None) -> WelfordState:
     """Merge a (B, d) batch into the running estimate (Chan et al. merge);
     (S, B, d) into S estimates (S, d), each batch of the same size. The
-    count's ratios are exact float32 values, as the reference's."""
-    b = batch.shape[-2]
-    bmean = torch.mean(batch, dim=-2)
-    bm2 = torch.sum((batch - bmean[..., None, :]) ** 2, dim=-2)
+    count's ratios are exact float32 values, as the reference's. Under a
+    mesh the batch is this rank's rows of the B S pooled ones."""
+    if mesh is None:
+        b = batch.shape[-2]
+        bmean = torch.mean(batch, dim=-2)
+        bm2 = torch.sum((batch - bmean[..., None, :]) ** 2, dim=-2)
+    else:
+        b = batch.shape[-2] * mesh.size
+        bmean = mesh.all_reduce_sum(torch.sum(batch, dim=-2)) / b
+        bm2 = mesh.all_reduce_sum(torch.sum((batch - bmean[..., None, :]) ** 2, dim=-2))
     delta = bmean - state.mean
     total = state.count + b
     denom = max(total, 1)
@@ -116,6 +135,7 @@ def window_adaptation(
     initial_step_size: float = 0.1,
     target_acceptance: float = 0.8,
     adapt_mass: bool = True,
+    mesh=None,
 ):
     """Adapt (step_size, diagonal inverse mass) for an ensemble kernel.
 
@@ -124,7 +144,9 @@ def window_adaptation(
     chain state. Returns ``run(positions, noises)``, ``noises`` one noise
     tuple a step, which gives (last_state, (step_size, inverse_mass),
     per-step mean acceptance). The schedule is known on the host, so slow
-    and end steps are Python branches."""
+    and end steps are Python branches. Under ``mesh`` the positions and
+    the noise are this rank's rows, and every rank adapts to the same
+    step and mass."""
     is_slow, is_end = build_schedule(num_steps)
 
     def run(positions: torch.Tensor, noises):
@@ -135,11 +157,11 @@ def window_adaptation(
         accs = []
         for i in range(num_steps):
             state, info = kernel(state, torch.exp(da.log_step), inv_mass, *noises[i])
-            mean_acc = torch.mean(info.acceptance_rate)
+            mean_acc = global_mean(info.acceptance_rate, mesh)
             da = da_update(da, mean_acc, target_acceptance)
             if adapt_mass:
                 if is_slow[i]:
-                    wf = welford_update_batch(wf, state.position)
+                    wf = welford_update_batch(wf, state.position, mesh)
                 if is_end[i]:  # a window's end: new mass, fresh Welford, re-anchored step
                     inv_mass = welford_variance(wf)
                     wf = welford_init(dim, dev)

@@ -11,6 +11,8 @@
     python -m mfm_tpu_torch.cli --example pines --seed 0 --move-correct 100
     python -m mfm_tpu_torch.cli --example many-well --seed 0 --defensive-alpha 0.9
     python -m mfm_tpu_torch.cli --example 4-mode --vmap-seeds --run-dir runs
+    python -m torch.distributed.run --standalone --nproc-per-node 2 -m mfm_tpu_torch.cli \
+        --example phi-four --seed 0 --set mesh_shape='(1,2)'
 
 Each example runs its preset as ``mfm_tpu`` ships it (phi-four and pines:
 the bf16 field, ``field_precision='default'``; pines: the 'prior'
@@ -44,6 +46,18 @@ of its own is evaluated. Each seed logs to
 the final row, and with ``--full-metrics`` every iteration's metrics);
 ``--wandb`` adds Weights & Biases where it is installed. The run needs the
 device it is given (default ``cuda``); it never falls back to another.
+
+``--set mesh_shape=(e,c)`` shards one run's chains over e c ranks started
+by ``torchrun`` (``parallel.mesh``; ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` and ``MASTER_ADDR`` come from its environment). Rank r
+computes on card ``LOCAL_RANK % device_count``; the backend is NCCL where
+each rank has a card of its own and gloo where ranks share one (or on the
+CPU); each rank logs its card and the backend. Every rank trains its
+rows; rank 0 evaluates, prints the row and writes ``--run-dir``. A mesh
+is refused without a process group of its size, and with
+``--vmap-seeds``, the baselines (``--do-fab``, ``--do-flowmc``,
+``--do-dds``), ``--flow-smc`` and ``--move-correct``, which have no
+sharded path (the reference runs them unsharded or drops the mesh).
 """
 
 import argparse
@@ -177,7 +191,8 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
     a training run. ``fused_metrics`` is ``evaluate_samples``' choice of
     the pairwise kernels (``--pallas-metrics``); ``plots`` renders the
     reference's figure set (``drivers.plots.make_run_figures``) into the
-    logger's run directory."""
+    logger's run directory. Under a chain mesh every rank trains and rank
+    0 alone evaluates: the other ranks return None."""
     log_to = logger if logger is not None else MetricLogger(stdout_every=0)
     n_eval = cfg.eval_iter * cfg.num_chain
     real_samples = None
@@ -186,6 +201,8 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
     extra = {}
     if do_smc:
         result = run_smc(target, cfg, device)
+        if not _is_primary():
+            return None
         flow_samples = exact_samples = result.particles
         train_time = result.train_time
         extra = {"log_z": float(result.log_z), "lmbda": float(result.lmbda),
@@ -202,6 +219,8 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
     else:
         if run is None:
             run = run_mfm(target, cfg, device, logger=log_to)
+        if not _is_primary():  # under a mesh rank 0 evaluates the gathered run
+            return None
         train_time = run.train_time
         gen = make_generator(device, cfg.seed, 999)
         if defensive_alpha < 1.0:
@@ -257,6 +276,48 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
         log_to.log_per_iteration(run.metrics)
     log_to.finish()
     return metrics
+
+
+def _is_primary() -> bool:
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+MESH_REFUSED = ("vmap_seeds", "do_fab", "do_flowmc", "do_dds", "flow_smc", "move_correct")
+
+
+def start_mesh(mesh_shape, args):
+    """Join the ``torchrun`` process group for ``mesh_shape`` (or take the
+    one the calling program initialised) and return (this rank's device,
+    whether the group was started here); refuses by name the flags that
+    have no sharded path and a group that is missing or of another size."""
+    import os
+
+    import torch.distributed as dist
+
+    from mfm_tpu_torch.parallel.mesh import device_of_rank, init_from_env, make_mesh
+
+    refused = [f"--{f.replace('_', '-')}" for f in MESH_REFUSED if getattr(args, f)]
+    if refused:
+        raise SystemExit(
+            f"--set mesh_shape={tuple(mesh_shape)}: {', '.join(refused)} has no sharded path "
+            "(the reference runs it unsharded or drops the mesh); drop one of them")
+    started = not (dist.is_available() and dist.is_initialized())
+    try:
+        if started:
+            _, _, _, device = init_from_env(args.device)
+        else:
+            device = device_of_rank(args.device, int(os.environ.get("LOCAL_RANK",
+                                                                    dist.get_rank())))
+        mesh = make_mesh(tuple(mesh_shape), device=device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"--set mesh_shape={tuple(mesh_shape)}: {e}") from None
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    logging.getLogger("mfm_tpu_torch").info(
+        "mesh %s: rank %d of %d on %s (%s), backend %s", mesh.shape, mesh.rank, mesh.size,
+        device, name, mesh.backend)
+    return device, started
 
 
 def run_seeds_vmapped(target, cfg, seeds, device, args) -> list:
@@ -417,8 +478,20 @@ def main(argv=None):
             overrides[name] = val
     overrides["mcmc_kernel"] = args.mcmc_kernel
     overrides.update(_parse_set(args.set))
-    if overrides.get("mesh_shape") is not None:
-        raise SystemExit("--set mesh_shape: not ported yet (a chain mesh across cards)")
+    mesh_shape = overrides.get("mesh_shape")
+    started = False
+    if mesh_shape is not None:
+        device, started = start_mesh(mesh_shape, args)
+    try:
+        return _run(args, overrides, device)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, overrides, device) -> list:
     cfg = preset(args.example, **overrides)
     target = make_target(args.example, device)
     if args.defensive_alpha < 1.0:  # refused before training, not after
@@ -444,6 +517,8 @@ def main(argv=None):
                 defensive_var=args.defensive_var, logger=make_logger(cfg, args),
                 full_metrics=args.full_metrics, fused_metrics=args.pallas_metrics,
                 plots=args.plots))
+    if not _is_primary():  # the row is rank 0's to print
+        return []
 
     cols = ("logpdf", "stein_u", "stein_v", "mmd", "train_time")
     rows = np.asarray([[m[c] for c in cols] for m in results])

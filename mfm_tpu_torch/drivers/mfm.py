@@ -44,7 +44,25 @@ below 1) and a per-seed select.
 ``checkpoint_every_chunks`` chunks (``utils.checkpoint``): the carry and
 the state of the noise generator, which fix the rest of the run.
 
-Not ported yet: meshes.
+Under a chain mesh (``cfg.mesh_shape``, ``mfm_tpu/drivers/mfm.py:423-436``;
+``parallel.mesh``) each rank is one process with its rows of the
+ensemble and a full copy of the flow state, and every reduction over
+chains that XLA inserts in the reference is an explicit collective:
+
+- the flow-matching loss is a sum over the batch, so the gradients and
+  the loss are all-reduced summed, flattened into one buffer an
+  iteration; the non-finite skip is decided on the reduced gradient, so
+  every rank skips together and the parameters never part;
+- the acceptances are gathered (N scalars) for the dual averaging and
+  the metrics, the log-likelihoods (N scalars) for each tempering
+  bisection, so every rank solves the same beta on the same data;
+- Welford pools the positions of all ranks (two all-reduces of d floats);
+- the OT coupling gathers positions and reference draws (``flows.losses``).
+
+Each rank draws the iteration's global noise from the same generator and
+keeps its rows (``shard_noise``), so a sharded run equals the one-process
+run up to the order of the reductions. ``run_mfm`` checkpoints each
+rank's rows apart and returns the gathered chain on every rank.
 """
 
 import math
@@ -89,6 +107,7 @@ from mfm_tpu_torch.kernels import ChainState, mala
 from mfm_tpu_torch.kernels.mala import MalaNoise
 from mfm_tpu_torch.kernels.nuts import NUTSNoise
 from mfm_tpu_torch.ops.field import ACTIVATIONS, check_fits, field_layout
+from mfm_tpu_torch.parallel.mesh import ChainMesh, make_mesh, shard_chains
 from mfm_tpu_torch.smc.solvers import bisection
 from mfm_tpu_torch.targets import make_ref_dist
 from mfm_tpu_torch.targets.base import PriorReference, Target
@@ -138,6 +157,7 @@ class MFMPieces(NamedTuple):
     field_bind: Callable  # the transport's tangent field (cnf.make_transport)
     fourier: torch.Tensor = None  # (F,), or (S, F) for a seed sweep
     binder: Callable = None  # (net, freqs) -> a tangent field (a binder of flows.cnf)
+    mesh: Optional[ChainMesh] = None  # the chain mesh, or None for one process
 
 
 class SeedAxis(NamedTuple):
@@ -239,9 +259,41 @@ def set_field_precision(field_precision: str) -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
-def _check_ported(cfg) -> None:
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError("not ported yet: mesh_shape")
+def mesh_of(cfg, device, mesh: Optional[ChainMesh] = None) -> Optional[ChainMesh]:
+    """The run's chain mesh: ``mesh``, or one of ``cfg.mesh_shape`` over the
+    initialised process group (refused by name where there is none of that
+    size); None for one process. ``cfg.num_chain`` must split evenly, which
+    is checked here, on every rank, before the first collective."""
+    if mesh is None and cfg.mesh_shape is not None:
+        mesh = make_mesh(tuple(cfg.mesh_shape), device=device)
+    if mesh is None:
+        return None
+    if cfg.mesh_shape is not None and tuple(cfg.mesh_shape) != mesh.shape:
+        raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} is not the mesh's {mesh.shape}")
+    if cfg.num_chain % mesh.size:
+        raise ValueError(f"num_chain={cfg.num_chain} does not split over the {mesh.size} "
+                         f"ranks of mesh {mesh.shape}")
+    return mesh
+
+
+def shard_noise(noise, mesh: Optional[ChainMesh], B: int):
+    """This rank's rows of one iteration's noise drawn for all ``B`` chains
+    (a tensor or a noise tuple): along the chain axis, the last one of
+    NUTS's (depth, B) uniforms and the first one elsewhere, k rows a chain
+    where a field has k B of them (CIS's B N candidates, chain-major)."""
+    if mesh is None or noise is None:
+        return noise
+    rows = mesh.rows(B)
+
+    def cut(v, dim):
+        k = v.shape[dim] // B
+        return v.narrow(dim, rows.start * k, (rows.stop - rows.start) * k).contiguous()
+
+    if isinstance(noise, torch.Tensor):
+        return cut(noise, 0)
+    nuts = isinstance(noise, NUTSNoise)
+    return type(noise)(*(None if v is None else cut(v, -1 if nuts and name != "eps" else 0)
+                         for name, v in zip(noise._fields, noise)))
 
 
 def reference_of(target: Target, cfg, device) -> Target:
@@ -253,15 +305,18 @@ def reference_of(target: Target, cfg, device) -> Target:
 
 
 def build_mfm(
-    target: Target, cfg, device, init_generator
+    target: Target, cfg, device, init_generator, mesh: Optional[ChainMesh] = None
 ) -> MFMPieces:
     """Construct the pieces of an MFM run. ``init_generator`` (on the CPU)
     draws the Fourier frequencies and the initial weights; a sequence of
     them, one a seed, builds a seed sweep (the module docstring): its
     ``step_fn`` carries every seed, ``init_fn`` takes the S B seed-major
     initial rows and ``draw_step_noise`` one generator a seed, each drawn
-    as a run of that seed alone draws."""
-    _check_ported(cfg)
+    as a run of that seed alone draws.
+
+    Under a chain mesh (``mesh``, or ``cfg.mesh_shape`` over the
+    initialised process group) ``init_fn`` and ``step_fn`` take this
+    rank's rows and ``draw_step_noise`` returns them."""
     set_field_precision(cfg.field_precision)
     if cfg.divergence == "exact_disc" and cfg.dim > EXACT_DISC_MAX_D:
         raise ValueError(
@@ -271,8 +326,13 @@ def build_mfm(
     use_real_samples = cfg.mcmc_per_flow_steps < 0
     B, d = cfg.num_chain, cfg.dim
     swept = not isinstance(init_generator, torch.Generator)
+    mesh = mesh_of(cfg, device, mesh)
+    if swept and mesh is not None:
+        raise ValueError("a seed sweep under a chain mesh is not a path: run the seeds "
+                         "one by one under the mesh, or the sweep in one process")
     gens = list(init_generator) if swept else [init_generator]
     axis = SeedAxis(len(gens) if swept else None, B)
+    gather = (lambda v: v) if mesh is None else mesh.all_gather_rows
 
     nets = []
     for gen in gens:
@@ -323,12 +383,14 @@ def build_mfm(
     draw_flow_noise = flow_noise_sampler(cfg.num_importance_samples)
     conditional = cfg.cond_flow or cfg.ot_cond_flow
 
-    def loss_fn(params, samples, noise: FMNoise, freqs=None):
-        """One seed's loss; ``freqs`` in place of the net's own frequencies."""
+    def loss_fn(params, samples, noise: FMNoise, freqs=None, over=None):
+        """One seed's loss; ``freqs`` in place of the net's own frequencies.
+        ``over`` a mesh: ``samples`` and ``noise`` are this rank's rows, and
+        the loss is its share of the sum."""
         if conditional:
             batch = cond_fm_sample(
                 samples, noise.t, noise.x0, noise.eps, cfg.sigma,
-                noise.ot_u if cfg.ot_cond_flow else None,
+                noise.ot_u if cfg.ot_cond_flow else None, over,
             )
         else:
             batch = fm_sample(samples, noise.t, noise.eps, cfg.sigma)
@@ -344,7 +406,14 @@ def build_mfm(
         # that seed's step and counts only in its notfinite_count
         apply_grads = vmap(lambda state, grads: apply_gradients(state, grads, tx))
     else:
-        loss_and_grad = grad_and_value(loss_fn)
+        local_loss_and_grad = grad_and_value(loss_fn)
+
+        def loss_and_grad(params, samples, noise):
+            grads, loss = local_loss_and_grad(params, samples, noise, None, mesh)
+            if mesh is not None:  # the loss is a sum: every rank's gradient summed
+                grads, loss = mesh.all_reduce_tree((grads, loss))
+            return grads, loss
+
         apply_grads = lambda state, grads: apply_gradients(state, grads, tx)
 
     def vs_at(beta):
@@ -358,7 +427,8 @@ def build_mfm(
         if use_real_samples:
             beta = torch.ones(lead, device=dev)
         else:
-            beta = next_beta(0.0, axis.split(target.log_lik(init_positions)), cfg.alpha, B)
+            beta = next_beta(0.0, axis.split(gather(target.log_lik(init_positions))), cfg.alpha,
+                             B)
         chain = mala.init(init_positions, vs_at(beta))
         states = [create_train_state(field_params(n), tx) for n in nets]
         train = stack_trees(states) if swept else states[0]
@@ -385,7 +455,7 @@ def build_mfm(
             mean_acc = torch.mean(axis.split(acc), dim=-1)
             da = da_update(da, torch.nan_to_num(mean_acc, nan=0.0), target_acc)
         if adapt_mass:
-            wf = welford_update_batch(wf, axis.split(position))
+            wf = welford_update_batch(wf, axis.split(position), mesh)
             if wf.count >= cfg.mass_refresh_every * B:
                 inv_mass = welford_variance(wf)
                 wf = welford_init(inv_mass.shape, position.device)
@@ -411,40 +481,44 @@ def build_mfm(
     def draw_step_noise(gen, count: int):
         """The iteration's (move noise, FMNoise): from one generator, or
         from one a seed (``gen`` a sequence), each seed's drawn as its own
-        run draws them, the move's on S B rows and the FMNoise (S, B, ...)."""
+        run draws them, the move's on S B rows and the FMNoise (S, B, ...).
+        Under a mesh: this rank's rows of the draws for all B chains."""
         if not swept:
-            return draw_one(gen, count)
+            return tuple(shard_noise(v, mesh, B) for v in draw_one(gen, count))
         moves, fms = zip(*(draw_one(g, count) for g in gen))
         move = torch.cat(moves) if use_real_samples else cat_rows(moves)
         return move, stack_trees(fms)
 
     def data_step(carry: MFMCarry, count, noise):
-        """(chain, acceptance, da, wf, inv_mass) after the iteration's move."""
+        """(chain, acceptance, da, wf, inv_mass) after the iteration's move;
+        the acceptance of every chain (of every rank under a mesh)."""
         chain, da, wf, inv_mass = carry.chain, carry.da, carry.wf, carry.inv_mass
         if use_real_samples:
             zeros = torch.zeros(noise.shape[0], device=noise.device)
-            nan = torch.full_like(zeros, torch.nan)
+            rows = noise.shape[0] * (1 if mesh is None else mesh.size)  # every rank's
+            nan = torch.full((rows,), torch.nan, device=noise.device)
             return ChainState(noise, zeros, torch.zeros_like(noise)), nan, da, wf, inv_mass
         vs = vs_at(carry.beta)
         if _interleave_is_flow(count, cfg.mcmc_per_flow_steps):
             tgt = FlowTarget(vs, ref_dist.log_prob, ref_dist.sample)
             new, info = flow_kernel(chain, carry.train.params, transport, tgt, *noise)
-            return new, info.acceptance_rate, da, wf, inv_mass
+            return new, gather(info.acceptance_rate), da, wf, inv_mass
         step = step_size_of(da, count)
         if axis.S is not None and isinstance(step, torch.Tensor):
             step = axis.rows(step)[:, None]
         kernel = mcmc_builder(vs, (step, axis.rows(inv_mass)))
         new, info = kernel(chain, noise)
+        acc = gather(info.acceptance_rate)
         if adapting and count <= freeze_iter:
-            da, wf, inv_mass = update_adaptation(info.acceptance_rate, new.position, da, wf,
-                                                 inv_mass)
-        return new, info.acceptance_rate, da, wf, inv_mass
+            da, wf, inv_mass = update_adaptation(acc, new.position, da, wf, inv_mass)
+        return new, acc, da, wf, inv_mass
 
     def temper_step(chain, beta):
         """The ESS rule's next level and the chains re-initialised there; in
         a sweep, seeds already at 1 keep theirs (the reference's batched
         ``lax.cond`` is the same select)."""
-        new_beta = next_beta(beta, axis.split(target.log_lik(chain.position)), cfg.alpha, B)
+        new_beta = next_beta(beta, axis.split(gather(target.log_lik(chain.position))), cfg.alpha,
+                             B)
         fresh = mala.init(chain.position, vs_at(new_beta))
         if axis.S is None:
             return fresh, new_beta
@@ -478,7 +552,7 @@ def build_mfm(
     return MFMPieces(
         step_fn=step_fn, init_fn=init_fn, draw_step_noise=draw_step_noise, net=net,
         transport=transport, ref_dist=ref_dist, loss_fn=loss_fn, lr_fn=lr_fn, tx=tx,
-        field_bind=bind, fourier=fourier, binder=binder,
+        field_bind=bind, fourier=fourier, binder=binder, mesh=mesh,
     )
 
 
@@ -528,18 +602,24 @@ def train_loop(pieces: MFMPieces, cfg, device, carry: MFMCarry, gen, warm_gen,
     With ``cfg.checkpoint_dir``, the loop resumes from the latest
     checkpoint there and saves one every ``checkpoint_every_chunks``
     chunks: the carry and the generators' states, which fix the rest of
-    the run. A run resumed at or past ``learning_iter`` returns empty
+    the run, the chain rows in a file of their own for each rank of a
+    mesh. A run resumed at or past ``learning_iter`` returns empty
     metrics."""
     gens = list(gen) if isinstance(gen, (list, tuple)) else [gen]
     n_iter = cfg.learning_iter
     chunk = max(1, min(cfg.chunk_size, n_iter))
+    mesh = pieces.mesh
+
+    def replicated_part(c):
+        return (c._replace(chain=None), [g.get_state() for g in gens])
 
     done = 0
     if cfg.checkpoint_dir is not None:
-        template = (carry, [g.get_state() for g in gens])
-        restored, step = restore_checkpoint(cfg.checkpoint_dir, template=template)
+        restored, step = restore_checkpoint(cfg.checkpoint_dir, template=replicated_part(carry),
+                                            rows=carry.chain, mesh=mesh)
         if restored is not None:
-            carry, states = restored
+            (rest, states), chain = restored
+            carry = rest._replace(chain=chain)
             for g, state in zip(gens, states):
                 g.set_state(state)
             done = step
@@ -578,7 +658,8 @@ def train_loop(pieces: MFMPieces, cfg, device, carry: MFMCarry, gen, warm_gen,
             logger.log(chunk_mean)
         if (cfg.checkpoint_dir is not None and cfg.checkpoint_every_chunks
                 and chunks_done % cfg.checkpoint_every_chunks == 0):
-            save_checkpoint(cfg.checkpoint_dir, done, (carry, [g.get_state() for g in gens]))
+            save_checkpoint(cfg.checkpoint_dir, done, replicated_part(carry), rows=carry.chain,
+                            mesh=mesh)
     _synchronize(device)
     train_time = time.perf_counter() - train_start
     metrics = {}
@@ -588,13 +669,18 @@ def train_loop(pieces: MFMPieces, cfg, device, carry: MFMCarry, gen, warm_gen,
     return carry, metrics, train_time
 
 
-def run_mfm(target: Target, cfg, device="cuda", logger=None) -> MFMRun:
+def run_mfm(target: Target, cfg, device="cuda", logger=None,
+            mesh: Optional[ChainMesh] = None) -> MFMRun:
     """Train an MFM sampler (``train_loop``: the warm-up, the timed loop,
     checkpoints). ``logger`` (optional) gets ``log(dict)`` once per chunk
-    with the chunk-mean metrics."""
-    pieces = build_mfm(target, cfg, device, torch.Generator().manual_seed(cfg.seed))
+    with the chunk-mean metrics. Under a chain mesh (``mesh`` or
+    ``cfg.mesh_shape``) every rank calls it together; each trains its
+    rows, and each returns the gathered chain of all ranks."""
+    pieces = build_mfm(target, cfg, device, torch.Generator().manual_seed(cfg.seed), mesh)
+    mesh = pieces.mesh
     gen = make_generator(device, cfg.seed)
-    carry = pieces.init_fn(target.init_positions(gen, cfg.num_chain))
+    positions = target.init_positions(gen, cfg.num_chain)
+    carry = pieces.init_fn(positions if mesh is None else shard_chains(positions, mesh))
 
     eval_loss = None
     if logger is not None and target.can_sample:
@@ -612,8 +698,9 @@ def run_mfm(target: Target, cfg, device="cuda", logger=None) -> MFMRun:
 
     carry, metrics, train_time = train_loop(
         pieces, cfg, device, carry, gen, make_generator(device, cfg.seed, 1), logger, eval_loss)
+    chain = carry.chain if mesh is None else ChainState(*map(mesh.all_gather_rows, carry.chain))
     return MFMRun(
-        carry.train, carry.chain, carry.beta, metrics, train_time,
+        carry.train, chain, carry.beta, metrics, train_time,
         eval_transport(cfg, pieces.field_bind, pieces.transport), pieces.ref_dist, pieces.net,
     )
 

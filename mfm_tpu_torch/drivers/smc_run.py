@@ -20,7 +20,18 @@ population variance (``correction=0``), which is ``jnp.var``'s (torch's
 default divides by N - 1); and the reference runs the whole anneal twice
 so that its timed run excludes compilation (:216-222), where the port warms
 up one step with a separate generator, as ``run_mfm`` does, and times one
-run. Only the timing differs. Meshes (``cfg.mesh_shape``) are not ported.
+run. Only the timing differs.
+
+Under a chain mesh (``cfg.mesh_shape``, ``mfm_tpu/drivers/smc_run.py:104-155``)
+each rank holds its rows of the particles: ``systematic`` and
+``stratified`` take the distributed resampler and every scheme the ring
+gather (``smc.distributed``); the other schemes resample the gathered
+weights (N scalars), as XLA gathers them for the reference. The ESS
+solve, the log Z increment and the normalised weights are global
+(``smc.base``, ``smc.ess``); so are the particle variance (two
+all-reduces of d floats) and the dual averaging's mean acceptance
+(gathered). Waste-free SMC needs num_chain / P divisible by the shard
+count. ``run_smc`` returns the harvest of every rank on every rank.
 """
 
 import time
@@ -30,7 +41,9 @@ import torch
 
 from mfm_tpu_torch.adaptation.window import da_init, da_update
 from mfm_tpu_torch.kernels import hmc, mala, nuts
+from mfm_tpu_torch.parallel.mesh import shard_chains
 from mfm_tpu_torch.smc import adaptive_tempered, resampling, tempered
+from mfm_tpu_torch.smc.distributed import make_distributed_gather, make_distributed_resampler
 from mfm_tpu_torch.smc.tempered import SMCStepNoise
 from mfm_tpu_torch.targets.base import GeometricPath, Target
 
@@ -52,6 +65,7 @@ class SMCPieces(NamedTuple):
     step_fn: Callable  # (carry, SMCStepNoise) -> (carry, SMCInfo)
     draw_step_noise: Callable  # generator -> SMCStepNoise
     target: Target  # the tempered target (the geometric path where asked)
+    mesh: object = None  # the chain mesh (parallel.mesh.ChainMesh), or None
 
 
 def _make_kernel_builder(cfg):
@@ -88,15 +102,37 @@ def _make_kernel_builder(cfg):
     raise ValueError(f"unknown mcmc_kernel {name!r} (known: mala, hmc, nuts)")
 
 
-def particle_inv_mass(particles: torch.Tensor) -> torch.Tensor:
+def particle_inv_mass(particles: torch.Tensor, mesh=None) -> torch.Tensor:
     """The diagonal inverse mass at a temperature: the particles' population
-    variance, floored at 1e-6."""
-    return torch.clamp(torch.var(particles, dim=0, correction=0), min=1e-6)
+    variance, floored at 1e-6; over every rank's rows under ``mesh``."""
+    if mesh is None:
+        var = torch.var(particles, dim=0, correction=0)
+    else:
+        n = particles.shape[0] * mesh.size
+        mean = mesh.all_reduce_sum(torch.sum(particles, dim=0)) / n
+        var = mesh.all_reduce_sum(torch.sum((particles - mean) ** 2, dim=0)) / n
+    return torch.clamp(var, min=1e-6)
 
 
-def build_smc(target: Target, cfg, resampler: str = "systematic") -> SMCPieces:
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError("not ported yet: mesh_shape")
+def _gathered_resampler(resample_fn, mesh):
+    """A single-device scheme on the gathered weights; this rank's slice of
+    the ancestors."""
+
+    def resample(noise, weights, num_samples):
+        return resample_fn(noise, mesh.all_gather_rows(weights), num_samples)[
+            mesh.rows(num_samples)]
+
+    return resample
+
+
+def build_smc(target: Target, cfg, resampler: str = "systematic", device=None,
+              mesh=None) -> SMCPieces:
+    """The pieces of an SMC run; under a chain mesh (``mesh``, or
+    ``cfg.mesh_shape`` over the initialised process group) ``init_fn`` and
+    ``step_fn`` take this rank's rows and ``draw_step_noise`` returns them."""
+    from mfm_tpu_torch.drivers.mfm import mesh_of, shard_noise
+
+    mesh = mesh_of(cfg, device, mesh)
     if cfg.smc_path == "geometric":
         target = GeometricPath(target)
     elif cfg.smc_path != "reference":
@@ -105,37 +141,56 @@ def build_smc(target: Target, cfg, resampler: str = "systematic") -> SMCPieces:
         raise ValueError(
             f"waste_free_p={cfg.waste_free_p} must divide num_chain={cfg.num_chain}"
         )
+    n, d = cfg.num_chain, cfg.dim
+    n_moved = n // cfg.waste_free_p if cfg.waste_free_p else n
+    resample_fn, gather_fn = resampling.get_resampler(resampler), None
+    if mesh is not None:
+        if n_moved % mesh.size:
+            raise ValueError(
+                f"waste-free under a mesh needs num_chain / waste_free_p = {n_moved} "
+                f"divisible by the shard count {mesh.size}")
+        if resampler in ("systematic", "stratified"):
+            resample_fn = make_distributed_resampler(resampler, mesh)
+        else:
+            resample_fn = _gathered_resampler(resample_fn, mesh)
+        gather_fn = make_distributed_gather(mesh)
     adapt_step, adapt_mass, target_acc = cfg.resolved_adaptation()
     builder, draw_move = _make_kernel_builder(cfg)
     kernel = adaptive_tempered.build_kernel(
-        target, builder, mala.init, resampling.get_resampler(resampler), cfg.alpha,
-        cfg.iter_per_temp, waste_free_p=cfg.waste_free_p,
+        target, builder, mala.init, resample_fn, cfg.alpha, cfg.iter_per_temp,
+        gather_fn=gather_fn, waste_free_p=cfg.waste_free_p, mesh=mesh,
     )
-    n, d = cfg.num_chain, cfg.dim
-    n_moved = n // cfg.waste_free_p if cfg.waste_free_p else n
     n_moves = tempered.num_moves(cfg.iter_per_temp, cfg.waste_free_p)
 
     def init_fn(positions):
-        return SMCCarry(tempered.init(positions), da_init(cfg.step_size, positions.device),
+        state = tempered.init(positions)
+        if mesh is not None:  # this rank's rows of N uniform weights
+            state = state._replace(weights=torch.full_like(state.weights, 1.0 / n))
+        return SMCCarry(state, da_init(cfg.step_size, positions.device),
                         torch.ones(d, device=positions.device))
 
     def step_fn(carry: SMCCarry, noise: SMCStepNoise):
         state, da, inv_mass = carry
         step_size = torch.exp(da.log_step) if adapt_step else cfg.step_size
         if adapt_mass:
-            inv_mass = particle_inv_mass(state.particles)
+            inv_mass = particle_inv_mass(state.particles, mesh)
         state, info = kernel(state, noise, (step_size, inv_mass))
         # the inner acceptance, (moves, N) or (P - 1, M): its mean either way
-        mean_acc = torch.nan_to_num(torch.mean(info.update_info), nan=0.0)
+        acc = info.update_info
+        if mesh is not None:
+            acc = mesh.all_gather_rows(acc.T.contiguous()).T.contiguous()
+        mean_acc = torch.nan_to_num(torch.mean(acc), nan=0.0)
         return SMCCarry(state, da_update(da, mean_acc, target_acc), inv_mass), info
 
     def draw_step_noise(gen: torch.Generator) -> SMCStepNoise:
+        """One step's draws for all particles: this rank's rows of the
+        moves' under a mesh (the resampler's uniforms are every rank's)."""
         return SMCStepNoise(
             resampling.draw_noise(resampler, gen, n_moved),
-            [draw_move(gen, n_moved, d) for _ in range(n_moves)],
+            [shard_noise(draw_move(gen, n_moved, d), mesh, n_moved) for _ in range(n_moves)],
         )
 
-    return SMCPieces(init_fn, step_fn, draw_step_noise, target)
+    return SMCPieces(init_fn, step_fn, draw_step_noise, target, mesh)
 
 
 def run_smc(target: Target, cfg, device="cuda", resampler: str = "systematic") -> SMCRunResult:
@@ -145,9 +200,11 @@ def run_smc(target: Target, cfg, device="cuda", resampler: str = "systematic") -
     tempering phase."""
     from mfm_tpu_torch.drivers.mfm import _synchronize, make_generator
 
-    pieces = build_smc(target, cfg, resampler)
+    pieces = build_smc(target, cfg, resampler, device)
+    mesh = pieces.mesh
     gen = make_generator(device, cfg.seed)
-    carry = pieces.init_fn(pieces.target.init_positions(gen, cfg.num_chain))
+    positions = pieces.target.init_positions(gen, cfg.num_chain)
+    carry = pieces.init_fn(positions if mesh is None else shard_chains(positions, mesh))
     pieces.step_fn(carry, pieces.draw_step_noise(make_generator(device, cfg.seed, 1)))
     _synchronize(device)
 
@@ -164,4 +221,6 @@ def run_smc(target: Target, cfg, device="cuda", resampler: str = "systematic") -
     for _ in range(cfg.eval_iter):
         carry, _ = pieces.step_fn(carry, pieces.draw_step_noise(gen))
         harvest.append(carry.state.particles)
+    if mesh is not None:  # every rank's rows, step by step
+        harvest = list(mesh.all_gather_rows(torch.stack(harvest, dim=1)).transpose(0, 1))
     return SMCRunResult(torch.cat(harvest), lmbda, log_z, train_time)

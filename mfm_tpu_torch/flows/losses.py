@@ -7,6 +7,12 @@ Minibatch optimal-transport coupling (``ot_pair``) re-pairs (x1, x0) from a
 log-domain Sinkhorn plan; its pair choice takes B uniforms ``ot_u``, which
 it uses as ``jax.random.choice`` uses its own (inverse CDF of the
 flattened plan at 1 - u).
+
+Under a chain mesh the reference couples the whole batch
+(``mfm_tpu/flows/losses.py:72-83``): ``cond_fm_sample(..., mesh=)``
+gathers every rank's positions and reference draws, so that every rank
+computes the same Sinkhorn plan, and draws the pairs of its own output
+rows with its own uniforms. There is no partial plan per shard.
 """
 
 import math
@@ -46,8 +52,9 @@ def sinkhorn_plan(cost: torch.Tensor, n_iters: int = 50, epsilon: Optional[float
 
 
 def ot_pair(samples, ref_samples, ot_u):
-    """Minibatch-OT coupling: B (x1, x0) index pairs drawn from the
-    Sinkhorn plan of the squared distances, with the uniforms ``ot_u`` (B,).
+    """Minibatch-OT coupling: (x1, x0) index pairs drawn from the Sinkhorn
+    plan of the squared distances of the B samples and B reference draws,
+    one a uniform of ``ot_u`` (B of them, or a rank's share under a mesh).
     Returns (samples[i], ref_samples[j])."""
     B = samples.shape[0]
     diff = samples[:, None, :] - ref_samples[None, :, :]
@@ -58,10 +65,13 @@ def ot_pair(samples, ref_samples, ot_u):
     return samples[choice // B], ref_samples[choice % B]
 
 
-def cond_fm_sample(samples, t, x0, eps, sigma: float, ot_u=None) -> FMBatch:
+def cond_fm_sample(samples, t, x0, eps, sigma: float, ot_u=None, mesh=None) -> FMBatch:
     """Conditional path: x_t = sigma eps + t x1 + (1 - t) x0, u_t = x1 - x0;
-    with ``ot_u`` the pairs (x1, x0) are first re-drawn by ``ot_pair``."""
+    with ``ot_u`` the pairs (x1, x0) are first re-drawn by ``ot_pair``, from
+    the whole batch of every rank of ``mesh``."""
     if ot_u is not None:
+        if mesh is not None:
+            samples, x0 = mesh.all_gather_rows(samples), mesh.all_gather_rows(x0)
         samples, x0 = ot_pair(samples, x0, ot_u)
     points = sigma * eps + t[:, None] * samples + (1.0 - t[:, None]) * x0
     return FMBatch(t, points, samples - x0)

@@ -7,6 +7,12 @@ resampled block.
 The noise is injected: ``resample_noise`` for ``resample_fn`` and
 ``update_noise`` for ``update_fn`` (the reference's ``key_resample`` and
 ``key_update``).
+
+Under a chain mesh (``mesh``, a ``parallel.mesh.ChainMesh``) the state is
+this rank's rows; ``resample_fn`` and ``gather_fn`` are then the
+distributed ones (``smc.distributed``), and the log-weights are gathered
+(N scalars) so that every rank takes the log Z increment's logsumexp and
+the weights' normaliser over all particles, with the same bits.
 """
 
 import math
@@ -40,20 +46,36 @@ def step(
     resample_noise,
     update_noise,
     num_resampled: Optional[int] = None,
+    gather_fn: Optional[Callable] = None,
+    mesh=None,
 ):
     """One Feynman-Kac step.
 
     update_fn(particles, noise) -> (new_particles, info)   [ensemble move]
     weigh_fn(particles)         -> (N,) log-weights        [potential]
     resample_fn(noise, weights, n) -> ancestor indices
+    gather_fn(particles, ancestors) -> resampled particles; defaults to
+        ``particles[ancestors]``, and under a mesh to
+        ``smc.distributed.make_distributed_gather``
+
+    ``num_resampled`` and N count the particles of every rank.
     """
-    n = state.weights.shape[0]
+    n = state.weights.shape[0] * (mesh.size if mesh is not None else 1)
     if num_resampled is None:
         num_resampled = n
     ancestors = resample_fn(resample_noise, state.weights, num_resampled)
-    particles, update_info = update_fn(state.particles[ancestors], update_noise)
+    if gather_fn is None and mesh is not None:  # global ids into sharded rows
+        from mfm_tpu_torch.smc.distributed import make_distributed_gather
+
+        gather_fn = make_distributed_gather(mesh)
+    if gather_fn is None:
+        particles = state.particles[ancestors]
+    else:
+        particles = gather_fn(state.particles, ancestors)
+    particles, update_info = update_fn(particles, update_noise)
     log_weights = weigh_fn(particles)
-    log_sum = torch.logsumexp(log_weights, 0)
+    every = log_weights if mesh is None else mesh.all_gather_rows(log_weights)
+    log_sum = torch.logsumexp(every, 0)
     log_z_increment = log_sum - math.log(n)
     weights = torch.exp(log_weights - log_sum)
     return SMCState(particles, weights), SMCInfo(ancestors, log_z_increment, update_info)

@@ -15,10 +15,15 @@ def ess(log_weights: torch.Tensor) -> torch.Tensor:
     return torch.exp(log_ess(log_weights))
 
 
-def ess_solver(loglik: torch.Tensor, target_ess: float, max_delta, root_solver: Callable):
+def ess_solver(loglik: torch.Tensor, target_ess: float, max_delta, root_solver: Callable,
+               mesh=None):
     """delta in [0, max_delta] with ESS(delta * loglik) = target_ess * N, by
     ``root_solver(fun, start, min_delta, max_delta)``; the incremental
-    weights of a tempering move of size delta are ``delta * loglik``."""
+    weights of a tempering move of size delta are ``delta * loglik``.
+    Under a chain mesh ``loglik`` is this rank's rows: they are gathered
+    once (N scalars), and every rank solves the same delta on the same data."""
+    if mesh is not None:
+        loglik = mesh.all_gather_rows(loglik)
     n = loglik.shape[0]
     # log(n * target_ess) in float32, as the reference computes it
     target = float(torch.log(torch.tensor(n * target_ess, dtype=torch.float32)))

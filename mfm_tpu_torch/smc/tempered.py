@@ -10,6 +10,12 @@ the new system is the M chains of length P in chain-major order, (P, M, d)
 
 The noise is injected: ``SMCStepNoise`` holds the resampler's draw and one
 noise tuple per inner move (``num_mcmc_steps`` of them, or P - 1).
+
+``gather_fn`` is ``smc.base.step``'s hook; ``mesh`` (a
+``parallel.mesh.ChainMesh``) runs the step on this rank's rows, the
+resampled M divisible by the shard count. The waste-free expansion stays
+shard-local: each rank's M / S ancestors expand to its own chain-major
+rows (``mfm_tpu/smc/tempered.py:110-115``).
 """
 
 from typing import Callable, NamedTuple, Sequence
@@ -47,7 +53,9 @@ def build_kernel(
     mcmc_init: Callable,
     resample_fn: Callable,
     num_mcmc_steps: int = 10,
+    gather_fn: Callable = None,
     waste_free_p: int = 0,
+    mesh=None,
 ) -> Callable:
     """``kernel(state, lmbda, noise, mcmc_params=None) -> (state, SMCInfo)``.
 
@@ -86,13 +94,18 @@ def build_kernel(
 
         num_resampled = None
         if waste_free_p:
-            n_total = state.particles.shape[0]
+            shards = mesh.size if mesh is not None else 1
+            n_total = state.particles.shape[0] * shards
             if n_total % waste_free_p:
                 raise ValueError(
                     f"waste-free SMC needs num_chain divisible by waste_free_p; "
                     f"got N={n_total}, P={waste_free_p}"
                 )
             num_resampled = n_total // waste_free_p
+            if num_resampled % shards:
+                raise ValueError(
+                    f"waste-free SMC under a mesh needs num_chain / waste_free_p = "
+                    f"{num_resampled} divisible by the shard count {shards}")
 
             def update_fn(particles, moves):
                 m, d = particles.shape
@@ -112,6 +125,7 @@ def build_kernel(
         smc_state, info = smc_base.step(
             smc_base.SMCState(state.particles, state.weights), update_fn, weigh_fn,
             resample_fn, noise.resample, noise.moves, num_resampled=num_resampled,
+            gather_fn=gather_fn, mesh=mesh,
         )
         return TemperedSMCState(smc_state.particles, smc_state.weights, state.lmbda + delta), info
 
@@ -124,12 +138,15 @@ def tempered_smc(
     mcmc_init: Callable,
     resample_fn: Callable,
     num_mcmc_steps: int = 10,
+    gather_fn: Callable = None,
     waste_free_p: int = 0,
+    mesh=None,
 ) -> SamplingAlgorithm:
     """``init(particles)``, ``step(noise, state, lmbda, mcmc_params=None)``
     with ``noise`` an ``SMCStepNoise``."""
     kernel = build_kernel(
-        target, mcmc_kernel_builder, mcmc_init, resample_fn, num_mcmc_steps, waste_free_p
+        target, mcmc_kernel_builder, mcmc_init, resample_fn, num_mcmc_steps, gather_fn,
+        waste_free_p, mesh,
     )
 
     def step_fn(noise, state, lmbda, mcmc_params=None):

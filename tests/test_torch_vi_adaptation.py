@@ -336,11 +336,23 @@ def test_rotation_hands_batch_b_the_params_of_b_plus_1():
 
 
 def test_mesh_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="not ported yet: mesh"):
-        parallel_eca(lambda *a: None, lambda *a: a, 2, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported yet: mesh"):
-        atess(lambda x: x, adam(1e-3), {"w": torch.zeros(1)}, None, None, 2, 2, eca=True,
-              mesh=object())
+    """A mesh whose ``ensemble`` axis does not split the batches, one with no
+    such axis, and a mesh for cross-chain adaptation are refused by name
+    (the sharded runs themselves: ``tests/test_torch_mesh.py``)."""
+    from mfm_tpu_torch.parallel.mesh import ChainMesh
+
+    two = ChainMesh((2,), ("ensemble",), None, 0, 2, "gloo", "cpu")
+    with pytest.raises(ValueError, match="num_batch=3 does not split over the 2 shards"):
+        parallel_eca(lambda *a: None, lambda *a: a, 3, 2, mesh=two)
+    with pytest.raises(ValueError, match="num_batch=3 does not split over the 2 shards"):
+        atess(lambda x: x, adam(1e-3), {"w": torch.zeros(1)}, None, None, 3, 2, eca=True,
+              mesh=two)
+    chains = ChainMesh((2,), ("chains",), None, 0, 2, "gloo", "cpu")
+    with pytest.raises(ValueError, match="has no axis 'ensemble'"):
+        parallel_eca(lambda *a: None, lambda *a: a, 2, 2, mesh=chains)
+    with pytest.raises(ValueError, match="cross-chain adaptation"):
+        atess(lambda x: x, adam(1e-3), {"w": torch.zeros(1)}, None, None, 2, 2, eca=False,
+              mesh=two)
 
 
 # ------------------------------------------------------------ warmups (CNF)
