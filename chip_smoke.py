@@ -23,7 +23,9 @@ own; any failure exits non-zero before the final line:
    their plain versions in float64, every call twice for equal bits, and
    no slower than before their redesign); K3 (value and score) at
    (1024, 64) Dirichlet, (1024, 64) periodic and (37, 64) with the ends at
-   0.5, and K3 through PhiFour.value_and_score; the phi-four score gate
+   0.5, and K3 through PhiFour.value_and_score, back to back (the pace of
+   its launcher) and queued behind a spin at (1024, 64) (its device time,
+   cold in the L2 and warm; the time reported); the phi-four score gate
    with 64 tangents at (1024, 64) Dirichlet, periodic, tilted, clipped
    at (37, 64), and at (256, 2048) Dirichlet (rows wider than 1024 sites
    take its one-warp-a-row kernel), timed with its inputs cold in the L2
@@ -169,7 +171,25 @@ own; any failure exits non-zero before the final line:
    lambda within 1e-3, and the single-device resampler on the same weights
    differing only by off-by-ones at float32 ties; and two steps of
    ``atess(mesh=)`` by parallel ECA (4 batches of 64) on the ``ensemble``
-   axis against the unsharded call, positions within 1e-4.
+   axis against the unsharded call, positions within 1e-4;
+47-51. the seed bands: the CLI's 10 replication seeds as one sweep
+   (``--vmap-seeds``) at each band's reduced configuration (64 chains,
+   widths 32, 8 RK4 steps, 512 eval samples a seed), held to the
+   reference's rows over the same seeds from
+   ``tools/seed_band_reference.json`` (made from the JAX package on the
+   CPU by ``tools/seed_band_reference.py``; this script reads only the
+   JSON): 47 4-mode (K2a, K2b), 48 gaussian-mixture (K2a, K2b), 49
+   phi-four as shipped (K3, the gate, K2a), 50 phi-four on the fused field
+   (K1, K3, the gate, K2a), 51 pines as shipped (K2a). Each held column
+   (logpdf, KSD-U and their IS-resampled ``*_star``, MMD and MMD* where
+   the target has an exact sampler, and the IS estimate of log Z) must lie
+   within ci95_ref + ci95_port of the reference's mean (ci95 = 1.96 sigma
+   over the seeds) and within 4 standard errors of the difference of the
+   means (KSD-U against the reference samples' float64 statistic, which
+   K2a computes); each prints both means, the gap, the gap over that
+   standard error, the mean ``is_ess`` and ``is_unique`` and its
+   launches, and fails on a column outside either limit, a non-finite row
+   on either side, or a kernel of its band never launched.
 
 Every CLI phase logs under a temporary --run-dir. Phase 3 also holds K1's
 seed axis (S=10 nets on 10 x 1024 rows, 64 tangents, one launch) to its
@@ -445,8 +465,28 @@ def phase_kernels(torch, report):
     target = PhiFour(64)
     k3["target_ms"] = cuda_ms(torch, lambda: target.value_and_score(x), 200)
     k3["launcher_ms"] = cuda_ms(torch, lambda: phi_four.phi_four_value_and_score(x), 200)
+    # its device time at the main path's shape: launches queued behind a
+    # spin, cold (each reads the next of enough copies of x, by x's own
+    # bytes, to fill the L2 twice; the outputs come back in the allocator's
+    # same blocks and may stay in the L2) and warm (one copy)
+    copies = [x.clone() for _ in range(math.ceil(2 * L2_BYTES / (x.numel() * x.element_size())))]
+    turn = [0]
+
+    def cold(fn):
+        def call():
+            turn[0] += 1
+            return fn(copies[turn[0] % len(copies)])
+        return call
+
+    k3["ms"] = cuda_ms(torch, cold(phi_four.phi_four_value_and_score), 200, True)
+    k3["plain_ms"] = cuda_ms(torch, cold(phi_four.phi_four_value_and_score_plain), 20, True)
+    k3["warm_ms"] = cuda_ms(torch, lambda: phi_four.phi_four_value_and_score(x), 200, True)
+    k3["share_of_bound"] = k3["bound_ms"] / k3["ms"]
     print(f"[3 K3 back to back B=1024 d=64] PhiFour.value_and_score {k3['target_ms']:.4f} ms, "
-          f"phi_four_value_and_score {k3['launcher_ms']:.4f} ms", flush=True)
+          f"phi_four_value_and_score {k3['launcher_ms']:.4f} ms; queued (device time): "
+          f"cold {k3['ms']:.4f} ms ({len(copies)} copies of x), warm {k3['warm_ms']:.4f} ms, "
+          f"plain cold {k3['plain_ms']:.4f} ms; bound {k3['bound_ms']:.6f} ms "
+          f"({k3['bound_by']}), share {k3['share_of_bound']:.3f}", flush=True)
     report["phi_four_value_and_score"] = k3
     phase_score_gate(torch, report, gen)
 
@@ -2049,7 +2089,140 @@ def mesh_worker(out_dir, spec):
         dist.destroy_process_group()
 
 
+# ------------------------------------------------------------- the seed bands
+# Phases 47-51 hold the port's 10-seed sweeps on the card to the reference's
+# rows over the same seeds, committed as data by tools/seed_band_reference.py
+# (the reference package on the CPU; this script reads only its JSON).
+BAND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                         "seed_band_reference.json")
+BAND_KERNELS = {  # the kernels each band's card run must launch
+    "4-mode": ("stein_pairwise_sum", "rbf_kernel_sum"),
+    "gaussian-mixture": ("stein_pairwise_sum", "rbf_kernel_sum"),
+    "phi-four": ("phi_four_value_and_score", "phi_four_score_gate", "stein_pairwise_sum"),
+    "phi-four-fused": ("field_apply", "phi_four_value_and_score", "phi_four_score_gate",
+                       "stein_pairwise_sum"),
+    "pines": ("stein_pairwise_sum",),
+}
+BAND_COLUMNS = ("logpdf", "stein_u", "stein_v", "mmd", "logpdf_star", "stein_u_star",
+                "stein_v_star", "mmd_star", "is_log_z")
+# The card's KSD is K2a's, with fp64 sums: it is held to KSD-U of the
+# reference's own samples in float64, not to the reference's fp32 statistic,
+# which loses a few per cent to cancellation where |x|^2 is large (pines).
+BAND_REFERENCE = {"stein_u": "stein_u_f64", "stein_u_star": "stein_u_star_f64"}
+# |gap| over the standard error of the difference of the means, at 10 seeds
+# a side: the ci95 rule alone lets a shift of ~3.9 sigma through, this one
+# ~1.8 sigma.
+BAND_SE_LIMIT = 4.0
+
+
+def set_flags(overrides):
+    """``--set`` flags for config overrides as the JSON holds them (a list
+    is a tuple field, a bool the CLI's true/false)."""
+    text = lambda v: (str(v).lower() if isinstance(v, bool)
+                      else repr(tuple(v)) if isinstance(v, list) else str(v))
+    return [f for k, v in overrides.items() for f in ("--set", f"{k}={text(v)}")]
+
+
+def run_band(torch, band, run_dir):
+    """The CLI's 10 seeds as one sweep (``--vmap-seeds``) at the band's
+    overrides on the card: each seed's metric row with the IS estimate of
+    log Z from the weights the CLI's ``sample_flow`` returned, and the wall."""
+    from mfm_tpu_torch import cli
+
+    drawn = []
+    sample_flow = cli.sample_flow
+
+    def recorded(*args, **kwargs):
+        out = sample_flow(*args, **kwargs)
+        drawn.append(out[2])
+        return out
+
+    argv = ["--example", band["example"], "--vmap-seeds", "--run-dir", run_dir,
+            *set_flags({**band["overrides"], **band["port_overrides"]})]
+    cli.sample_flow = recorded
+    t0 = time.perf_counter()
+    try:
+        rows = cli.main(argv)
+    finally:
+        cli.sample_flow = sample_flow
+    wall = time.perf_counter() - t0
+    for m, log_w in zip(rows, drawn):
+        m["is_log_z"] = float(torch.logsumexp(log_w.double(), 0)) - math.log(log_w.numel())
+    return rows, wall
+
+
+def phase_band(torch, counters, label, name, band, run_dir):
+    """One seed band: the port's 10 seeds against the reference's, each held
+    column within ci95_ref + ci95_port of the reference's mean (ci95 = 1.96
+    sigma over seeds, ``aggregate_seeds``) and within ``BAND_SE_LIMIT``
+    standard errors of the difference; fails on a column outside either, a
+    non-finite row on either side, or a kernel of the band never launched."""
+    import numpy as np
+
+    from mfm_tpu_torch.drivers import aggregate_seeds
+
+    before = [f.launches for f in counters]
+    rows, wall = run_band(torch, band, run_dir)
+    n = {f.__name__: f.launches - b for f, b in zip(counters, before)}
+    ref_rows = band["rows"]
+    port = np.array([[m[c] for c in BAND_COLUMNS] for m in rows], dtype=np.float64)
+    ref = np.array([[r[BAND_REFERENCE.get(c, c)] for c in BAND_COLUMNS] for r in ref_rows],
+                   dtype=np.float64)
+    got, want = aggregate_seeds(port.tolist()), aggregate_seeds(ref.tolist())
+    sd_port, sd_ref = got["ci95"] / 1.96, want["ci95"] / 1.96
+    outside = []
+    print(f"[{label}] {band['example']} {json.dumps(band['overrides'])} + "
+          f"{json.dumps(band['port_overrides'])}: {len(rows)} seeds in {wall:.1f} s of wall; "
+          f"reference {len(ref_rows)} seeds", flush=True)
+    for c in band["held"]:
+        i = BAND_COLUMNS.index(c)
+        gap, width = abs(got["mean"][i] - want["mean"][i]), want["ci95"][i] + got["ci95"][i]
+        se = math.sqrt(sd_ref[i] ** 2 / len(ref) + sd_port[i] ** 2 / len(port))
+        z = gap / se if se else (0.0 if gap == 0 else math.inf)
+        own = f" ({BAND_REFERENCE[c]})" if c in BAND_REFERENCE else ""
+        print(f"[{label.split()[0]} {c}] reference{own} {want['mean'][i]: .5e} +- "
+              f"{want['ci95'][i]:.4e}, port {got['mean'][i]: .5e} +- "
+              f"{got['ci95'][i]:.4e}; gap {gap:.4e} of band {width:.4e}, {z:.2f} standard errors "
+              f"of the difference (limit {BAND_SE_LIMIT})", flush=True)
+        if not (gap <= width and z <= BAND_SE_LIMIT):
+            outside.append(c)
+    ess = lambda rs: float(np.mean([r["is_ess"] for r in rs]))
+    unique = lambda rs: float(np.mean([r["is_unique"] for r in rs]))
+    print(f"[{label.split()[0]} weights] mean is_ess reference {ess(ref_rows):.3f}, port "
+          f"{ess(rows):.3f}; mean is_unique reference {unique(ref_rows):.1f}, port "
+          f"{unique(rows):.1f}", flush=True)
+    print(f"[{label.split()[0]} launches] " + " ".join(f"{k}={v}" for k, v in n.items()),
+          flush=True)
+    if len(rows) != 10 or len(ref_rows) != 10:
+        fail(f"{label}: {len(rows)} port seeds, {len(ref_rows)} reference seeds, not 10 each")
+    if not (np.all(np.isfinite(port)) and np.all(np.isfinite(ref))):
+        fail(f"{label}: a non-finite metric row (port or reference)")
+    if outside:
+        fail(f"{label}: {', '.join(outside)} outside the reference's seed band or more than "
+             f"{BAND_SE_LIMIT} standard errors from its mean")
+    missing = [k for k in BAND_KERNELS[name] if not n[k]]
+    if missing:
+        fail(f"{label}: the band launched no {', '.join(missing)}")
+    return dict(wall=wall, launches=n)
+
+
+def phase_bands(torch, counters, run_dir, first=47):
+    """Phases ``first``.. : every band of the committed reference file, in
+    the order of ``BAND_KERNELS``."""
+    with open(BAND_FILE) as fh:
+        bands = json.load(fh)["bands"]
+    if sorted(bands) != sorted(BAND_KERNELS):
+        fail(f"{BAND_FILE} holds bands {sorted(bands)}, not {sorted(BAND_KERNELS)}")
+    t0 = time.perf_counter()
+    for i, name in enumerate(BAND_KERNELS):
+        phase_band(torch, counters, f"{first + i} band {name}", name, bands[name], run_dir)
+    wall = time.perf_counter() - t0
+    print(f"[{first}-{first + len(BAND_KERNELS) - 1} bands] {wall:.1f} s of wall", flush=True)
+    return wall
+
+
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2176,6 +2349,7 @@ def main():
                  lambda: phase_mesh_smc_atess(torch, counters, run_dir))):
             os.makedirs(f"{tmp}/{label.split()[0]}", exist_ok=True)
             library_phase(torch, counters, label, (), fn)
+        phase_bands(torch, counters, run_dir)
     report["field_apply"]["seed_axis"]["sweep_launches_per_iteration"] = sweeps[
         "31 phi-four fused field seeds"]["launches_per_it"][K1]
     launches = {f.__name__: f.launches for f in counters}
@@ -2200,6 +2374,7 @@ def main():
          "launches": launches[name], **report[name]}
         for name, (src, rep) in replaces.items()
     ]
+    print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s of wall in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
