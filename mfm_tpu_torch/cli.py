@@ -82,6 +82,8 @@ from mfm_tpu_torch.drivers import (
 from mfm_tpu_torch.drivers.baselines import BASELINES, run_baseline
 from mfm_tpu_torch.drivers.multi_seed import run_mfm_seeds, seed_run
 from mfm_tpu_torch.drivers.mfm import (
+    EVAL_STREAM,
+    REAL_STREAM,
     check_normalised,
     defensive_split,
     draw_move_noise,
@@ -197,7 +199,7 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
     n_eval = cfg.eval_iter * cfg.num_chain
     real_samples = None
     if target.can_sample:
-        real_samples = target.sample(make_generator(device, cfg.seed, 1000), (n_eval,))
+        real_samples = target.sample(make_generator(device, cfg.seed, REAL_STREAM), (n_eval,))
     extra = {}
     if do_smc:
         result = run_smc(target, cfg, device)
@@ -222,7 +224,7 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
         if not _is_primary():  # under a mesh rank 0 evaluates the gathered run
             return None
         train_time = run.train_time
-        gen = make_generator(device, cfg.seed, 999)
+        gen = make_generator(device, cfg.seed, EVAL_STREAM)
         if defensive_alpha < 1.0:
             n_flow, _ = defensive_split(n_eval, defensive_alpha)
             mixture, exact_samples, log_w = sample_flow_defensive(
@@ -271,7 +273,7 @@ def run_one(target, cfg, device, check: bool = False, do_smc: bool = False,
         from mfm_tpu_torch.drivers.plots import make_run_figures
 
         log_to.log_figures(make_run_figures(target, cfg, flow_samples, exact_samples, run=run,
-                                            noise=make_generator(device, cfg.seed, 999)))
+                                            noise=make_generator(device, cfg.seed, EVAL_STREAM)))
     if full_metrics and run is not None:
         log_to.log_per_iteration(run.metrics)
     log_to.finish()

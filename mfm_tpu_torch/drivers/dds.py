@@ -37,6 +37,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from mfm_tpu_torch.drivers.baselines import BaselineResult, is_resample, is_summary
+from mfm_tpu_torch.drivers.mfm import EVAL_STREAM, WARM_STREAM, init_generator, make_generator
 from mfm_tpu_torch.flows.train import (
     adam,
     apply_updates,
@@ -106,7 +107,7 @@ def build_dds(
     dev = torch.device(device)
     betas = cos_sq_betas(n_steps, beta_max=beta_max, device=dev)
     ts = torch.arange(n_steps, dtype=torch.float32, device=dev) / n_steps
-    init = torch.Generator().manual_seed(seed)
+    init = init_generator(seed)
     fourier = torch.randn(128, generator=init)  # make_vector_field's 128 frequencies, std 1
     # both clips keep the gated score's feedback loop bounded (the reference
     # measured 4-mode diverging without them)
@@ -205,8 +206,8 @@ def run_dds(target: Target, seed: int = 0, n_iter: int = 1000, device="cuda",
     ``build_dds``'s. One loss and gradient with a separate generator runs
     first, untimed, and is discarded."""
     pieces = build_dds(target, seed, n_iter, device=device, **kwargs)
-    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003)
-    warm = torch.Generator(device=device).manual_seed(seed * 1_000_003 + 1)
+    gen = make_generator(device, seed)
+    warm = make_generator(device, seed, WARM_STREAM)
     carry = pieces.init_carry(pieces.params)
     pieces.loss_and_grad(carry.params, pieces.draw_noise(warm))
     _synchronize(device)
@@ -249,7 +250,7 @@ def dds_baseline(target: Target, cfg, seed: int = 0, n_eval: Optional[int] = Non
                   batch_size=cfg.num_chain, learning_rate=cfg.learning_rate,
                   hidden=tuple(cfg.hidden_xt), sigma=dds_sigma(cfg, device))
     n_eval = n_eval or cfg.eval_iter * cfg.num_chain
-    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + 999)
+    gen = make_generator(device, seed, EVAL_STREAM)
     noises = [res.draw_noise(gen) for _ in range(-(-n_eval // cfg.num_chain))]
     x, log_w = res.sample_fn(res.params, noises)
     flow_samples, log_w = x[:n_eval], log_w[:n_eval]

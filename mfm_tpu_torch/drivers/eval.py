@@ -1,8 +1,10 @@
 """End-of-run evaluation (counterpart of ``mfm_tpu.drivers.eval``):
 log-density, Stein discrepancies U/V, and MMD against exact target draws
 when the target has a sampler; the floor of exact draws against themselves,
-the summary-table row and the aggregate over seeds."""
+the summary-table row, the aggregate over seeds and the Fisher test of two
+sets of seeds."""
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -102,3 +104,14 @@ def aggregate_seeds(rows: list) -> dict:
     """mean +/- 1.96 sigma over seeds."""
     arr = np.asarray(rows, dtype=np.float64)
     return {"mean": arr.mean(axis=0), "ci95": 1.96 * arr.std(axis=0)}
+
+
+def fisher_exact(a: int, n_a: int, b: int, n_b: int) -> float:
+    """Two-sided Fisher exact p of a in n_a runs against b in n_b (say,
+    seeds whose flow row is not finite): the total probability, with the
+    margins fixed, of every table no more likely than the one observed."""
+    k, n = a + b, n_a + n_b
+    p = [math.comb(n_a, i) * math.comb(n_b, k - i) / math.comb(n, k)
+         for i in range(max(0, k - n_b), min(k, n_a) + 1)]
+    seen = p[a - max(0, k - n_b)]
+    return min(1.0, sum(q for q in p if q <= seen * (1 + 1e-7)))

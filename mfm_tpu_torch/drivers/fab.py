@@ -37,6 +37,7 @@ import torch
 from torch.func import grad_and_value
 
 from mfm_tpu_torch.drivers.baselines import BaselineResult, categorical, is_resample, is_summary
+from mfm_tpu_torch.drivers.mfm import EVAL_STREAM, WARM_STREAM, init_generator, make_generator
 from mfm_tpu_torch.flows.coupling import make_coupling_flow
 from mfm_tpu_torch.flows.train import adam, apply_updates, global_norm, make_lr_schedule
 from mfm_tpu_torch.targets.base import Target
@@ -301,7 +302,7 @@ def build_fab(
                       float(flow_cfg.get("spline_max", 10.0))),
         act_norm=bool(flow_cfg.get("act_norm", False)),
         base_scale=float(flow_cfg.get("base_scale", 1.0)),
-        generator=torch.Generator().manual_seed(seed),
+        generator=init_generator(seed),
         device=dev,
     )
 
@@ -556,8 +557,8 @@ def run_fab(
     prefill and the epochs."""
     pieces = build_fab(target, example, seed, n_epoch, batch_size, config_dir, overrides,
                        device)
-    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003)
-    warm = torch.Generator(device=device).manual_seed(seed * 1_000_003 + 1)
+    gen = make_generator(device, seed)
+    warm = make_generator(device, seed, WARM_STREAM)
     carry = pieces.init_carry(pieces.params)
     warm_carry = pieces.prefill_one(carry, pieces.draw_ais_noise(warm))
     pieces.train_iter(warm_carry, pieces.draw_iter_noise(warm))
@@ -589,7 +590,7 @@ def fab_baseline(target: Target, cfg, seed: int = 0, n_eval: Optional[int] = Non
         overrides={"flow": {"conditioner_mlp_units": list(cfg.hidden_xt)}}, device=device,
     )
     n_eval = n_eval or cfg.eval_iter * cfg.num_chain
-    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + 999)
+    gen = make_generator(device, seed, EVAL_STREAM)
     with torch.no_grad():
         eps = torch.randn((n_eval, target.dim), generator=gen, device=gen.device)
         flow_samples, log_flow = res.flow.sample_and_log_prob(res.params, eps)

@@ -22,6 +22,7 @@ import torch
 from torch.func import grad_and_value
 
 from mfm_tpu_torch.drivers.baselines import BaselineResult, is_resample, is_summary
+from mfm_tpu_torch.drivers.mfm import EVAL_STREAM, WARM_STREAM, init_generator, make_generator
 from mfm_tpu_torch.flows.coupling import make_coupling_flow
 from mfm_tpu_torch.flows.train import adam, apply_updates, global_norm
 from mfm_tpu_torch.kernels import ChainState, mala
@@ -93,7 +94,7 @@ def build_flowmc(
     flow, params = make_coupling_flow(
         dim, n_layers=n_layers, hidden=hidden, transform_type="spline", n_bins=n_bins,
         spline_range=spline_range, base_scale=base_scale,
-        generator=torch.Generator().manual_seed(seed), device=dev,
+        generator=init_generator(seed), device=dev,
     )
     opt = adam(learning_rate)
     vs = target.value_and_score
@@ -193,8 +194,8 @@ def run_flowmc(target: Target, seed: int = 0, n_loop: int = 10, device="cuda",
     separate generator runs first, untimed, and is discarded (it builds the
     kernels and initialises the libraries)."""
     pieces = build_flowmc(target, seed, device=device, **kwargs)
-    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003)
-    warm = torch.Generator(device=device).manual_seed(seed * 1_000_003 + 1)
+    gen = make_generator(device, seed)
+    warm = make_generator(device, seed, WARM_STREAM)
     carry = pieces.init_carry(pieces.params,
                               target.init_positions(gen, kwargs.get("n_chain", 128)))
     pieces.one_loop(carry, pieces.draw_loop_noise(warm, carry))
@@ -233,7 +234,7 @@ def flowmc_baseline(target: Target, cfg, seed: int = 0, n_eval: Optional[int] = 
         max_samples=cfg.num_chain * (steps + 1), batch_size=cfg.num_chain,
     )
     n_eval = n_eval or cfg.eval_iter * cfg.num_chain
-    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + 999)
+    gen = make_generator(device, seed, EVAL_STREAM)
     with torch.no_grad():
         eps = torch.randn((n_eval, target.dim), generator=gen, device=gen.device)
         flow_samples, log_flow = res.flow.sample_and_log_prob(res.params, eps)

@@ -556,9 +556,25 @@ def build_mfm(
     )
 
 
-def make_generator(device, seed: int, stream: int = 0) -> torch.Generator:
+# The named streams of a seeded run, one generator each (``make_generator``),
+# as the reference splits and folds ``PRNGKey(seed)``: no two share a draw.
+STEP_STREAM = 0  # the initial positions, then every iteration's noise
+WARM_STREAM = 1  # the untimed warm-up iterations
+INIT_STREAM = 2  # the net's Fourier frequencies and initial weights (CPU)
+PROBE_STREAM = 7  # the target-loss probe
+EVAL_STREAM = 999  # the eval's flow draws
+REAL_STREAM = 1000  # the eval's exact target samples
+
+
+def make_generator(device, seed: int, stream: int = STEP_STREAM) -> torch.Generator:
     """A generator on ``device`` for one named stream of a seeded run."""
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + stream)
+
+
+def init_generator(seed: int) -> torch.Generator:
+    """The CPU generator of a seeded run's initial weights: ``INIT_STREAM``,
+    so that on the CPU they share no draw with the initial positions."""
+    return make_generator("cpu", seed, INIT_STREAM)
 
 
 def _synchronize(device) -> None:
@@ -676,7 +692,7 @@ def run_mfm(target: Target, cfg, device="cuda", logger=None,
     with the chunk-mean metrics. Under a chain mesh (``mesh`` or
     ``cfg.mesh_shape``) every rank calls it together; each trains its
     rows, and each returns the gathered chain of all ranks."""
-    pieces = build_mfm(target, cfg, device, torch.Generator().manual_seed(cfg.seed), mesh)
+    pieces = build_mfm(target, cfg, device, init_generator(cfg.seed), mesh)
     mesh = pieces.mesh
     gen = make_generator(device, cfg.seed)
     positions = target.init_positions(gen, cfg.num_chain)
@@ -684,7 +700,7 @@ def run_mfm(target: Target, cfg, device="cuda", logger=None,
 
     eval_loss = None
     if logger is not None and target.can_sample:
-        probe_gen = make_generator(device, cfg.seed, 7)
+        probe_gen = make_generator(device, cfg.seed, PROBE_STREAM)
         n_probe = min(cfg.eval_iter * cfg.num_chain, 4096)
         probe = target.sample(probe_gen, (n_probe,))
         probe_noise = FMNoise(
@@ -697,7 +713,8 @@ def run_mfm(target: Target, cfg, device="cuda", logger=None,
         eval_loss = lambda params: pieces.loss_fn(params, probe, probe_noise)
 
     carry, metrics, train_time = train_loop(
-        pieces, cfg, device, carry, gen, make_generator(device, cfg.seed, 1), logger, eval_loss)
+        pieces, cfg, device, carry, gen, make_generator(device, cfg.seed, WARM_STREAM), logger,
+        eval_loss)
     chain = carry.chain if mesh is None else ChainState(*map(mesh.all_gather_rows, carry.chain))
     return MFMRun(
         carry.train, chain, carry.beta, metrics, train_time,

@@ -8,8 +8,8 @@ same launches (``build_mfm`` with one init generator a seed), so a launch
 does S times the work of one seed's.
 
 Seed s of a sweep computes what ``run_mfm`` computes at ``cfg.seed = s``:
-it draws from the same generators, ``build_mfm``'s CPU init generator
-seeded with s and ``make_generator(device, s, stream)``, one a seed; the
+it draws from the same generators, ``init_generator(s)`` for the net and
+``make_generator(device, s, stream)`` for the rest, one a seed; the
 reference has the same property (``single_seed`` splits ``PRNGKey(seed)``
 as ``run_mfm`` does). ``seed_run`` gives one seed of a sweep as an
 ``MFMRun``, with its own evaluation transport.
@@ -22,8 +22,10 @@ from torch.utils._pytree import tree_map
 
 from mfm_tpu_torch.drivers.mfm import (
     MFMRun,
+    WARM_STREAM,
     build_mfm,
     eval_transport,
+    init_generator,
     make_generator,
     train_loop,
 )
@@ -53,11 +55,11 @@ def run_mfm_seeds(target: Target, cfg, seeds: Sequence[int], device="cuda") -> S
     if cfg.checkpoint_dir is not None:
         raise ValueError("run_mfm_seeds takes no checkpoint_dir; run_mfm resumes one seed")
     seeds = list(seeds)
-    pieces = build_mfm(target, cfg, device, [torch.Generator().manual_seed(s) for s in seeds])
+    pieces = build_mfm(target, cfg, device, [init_generator(s) for s in seeds])
     gens = [make_generator(device, s) for s in seeds]
     init = torch.cat([target.init_positions(g, cfg.num_chain) for g in gens])
     carry = pieces.init_fn(init)
-    warm = [make_generator(device, s, 1) for s in seeds]
+    warm = [make_generator(device, s, WARM_STREAM) for s in seeds]
     carry, metrics, train_time = train_loop(pieces, cfg, device, carry, gens, warm)
     S = len(seeds)
     return SeedSweep(

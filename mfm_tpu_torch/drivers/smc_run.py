@@ -198,14 +198,14 @@ def run_smc(target: Target, cfg, device="cuda", resampler: str = "systematic") -
     harvest ``cfg.eval_iter`` more. A warm-up step on the initial carry with
     a separate generator builds the kernels first; ``train_time`` is the
     tempering phase."""
-    from mfm_tpu_torch.drivers.mfm import _synchronize, make_generator
+    from mfm_tpu_torch.drivers.mfm import WARM_STREAM, _synchronize, make_generator
 
     pieces = build_smc(target, cfg, resampler, device)
     mesh = pieces.mesh
     gen = make_generator(device, cfg.seed)
     positions = pieces.target.init_positions(gen, cfg.num_chain)
     carry = pieces.init_fn(positions if mesh is None else shard_chains(positions, mesh))
-    pieces.step_fn(carry, pieces.draw_step_noise(make_generator(device, cfg.seed, 1)))
+    pieces.step_fn(carry, pieces.draw_step_noise(make_generator(device, cfg.seed, WARM_STREAM)))
     _synchronize(device)
 
     start = time.perf_counter()

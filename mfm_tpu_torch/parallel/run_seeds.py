@@ -33,7 +33,7 @@ def seed_row(target, seed: int, learning_iter: int, device) -> list:
     are ``COLUMNS``."""
     from mfm_tpu_torch.config import MFMConfig
     from mfm_tpu_torch.drivers import evaluate_samples, run_mfm, sample_flow
-    from mfm_tpu_torch.drivers.mfm import make_generator
+    from mfm_tpu_torch.drivers.mfm import EVAL_STREAM, REAL_STREAM, make_generator
 
     cfg = MFMConfig(
         example="4-mode", dim=2, seed=seed, num_chain=32, learning_iter=learning_iter,
@@ -41,8 +41,8 @@ def seed_row(target, seed: int, learning_iter: int, device) -> list:
         fourier_dim=8, ode_steps=6, anneal_iter=20, num_anneal_temp=20,
     )
     run = run_mfm(target, cfg, device)
-    fs, es, _ = sample_flow(run, 256, target, make_generator(device, seed, 999))
-    real = target.sample(make_generator(device, 1), (256,))
+    fs, es, _ = sample_flow(run, 256, target, make_generator(device, seed, EVAL_STREAM))
+    real = target.sample(make_generator(device, 1, REAL_STREAM), (256,))  # one set for all seeds
     m = evaluate_samples(target, fs, es, real)
     return [m["logpdf_star"], m["stein_u_star"], m["mmd_star"], run.train_time]
 

@@ -19,8 +19,14 @@ iteration's metrics 1e-3 relative, positions 1e-3, the flow's parameters
 1e-2 absolute, and the finite flow samples 1e-2 absolute; the port's own
 initial carry on the same points 1e-5.
 
-Also (fast): ``run_mfm``'s warm-up leaves the run it precedes as it was.
+Also (slow) the port's single-seed path over ten committed seeds, its share
+of non-finite flow rows held to the reference's (two-sided Fisher p at
+least 0.01); and (fast) ``run_mfm``'s warm-up leaves the run it precedes
+as it was.
 """
+
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,8 +40,10 @@ from mfm_tpu.drivers.mfm import build_mfm as j_build
 from mfm_tpu_torch import cli as pcli
 from mfm_tpu_torch import config as pcfg
 from mfm_tpu_torch.drivers.mfm import (
-    FMNoise, MalaNoise, RwmNoise, _interleave_is_flow, build_mfm, make_generator, run_mfm,
+    EVAL_STREAM, FMNoise, MalaNoise, RwmNoise, _interleave_is_flow, build_mfm, init_generator,
+    make_generator, run_mfm,
 )
+from mfm_tpu_torch.drivers.eval import fisher_exact
 from torch_parity import npy, port_mfm_carry, tt
 
 SEED, ITERS = 1, 100
@@ -108,6 +116,34 @@ def test_many_well_nan_row_matches_the_reference_under_replayed_noise():
     np.testing.assert_allclose(x_port[ok], x_ref[ok], atol=1e-2)
 
 
+COMMITTED = Path(__file__).resolve().parents[1] / "tools" / "seed_band_reference.json"
+HELD_SEEDS = range(1000, 1010)
+
+
+@pytest.mark.slow
+def test_many_well_nan_share_is_the_references_on_the_single_seed_path():
+    """The CLI's ``--seed s`` path (``run_mfm``, then ``sample_flow`` on the
+    seed's eval stream) on the CPU over seeds 1000-1009: the share of seeds
+    whose flow row is not finite against the reference's over every seed in
+    ``tools/seed_band_reference.json``, two-sided Fisher p at least 0.01.
+    ~1 h at two threads."""
+    torch.set_num_threads(2)
+    data = json.loads(COMMITTED.read_text())
+    ref = list({r["seed"]: r for k in ("many_well", "many_well_more")
+                for r in data[k]["rows"]}.values())
+    ref_bad = sum(not r["flow_row_finite"] for r in ref)
+    target = pcli.make_target("many-well", "cpu")
+    bad = 0
+    for seed in HELD_SEEDS:
+        cfg = pcfg.preset("many-well", seed=seed, learning_iter=ITERS)
+        run = run_mfm(target, cfg, "cpu")
+        flow, _, _ = pcli.sample_flow(run, cfg.eval_iter * cfg.num_chain, target,
+                                      make_generator("cpu", seed, EVAL_STREAM))
+        bad += not bool(torch.isfinite(flow).all())
+    p = fisher_exact(bad, len(HELD_SEEDS), ref_bad, len(ref))
+    assert p >= 0.01, (bad, len(HELD_SEEDS), ref_bad, len(ref), p)
+
+
 def test_run_mfm_is_its_step_loop_after_the_warm_up():
     """``run_mfm``'s warm-up (one MCMC and one flow iteration on the
     initial carry, from a generator of its own) leaves the run as it was:
@@ -118,7 +154,7 @@ def test_run_mfm_is_its_step_loop_after_the_warm_up():
                       hidden_t=(16, 16), hidden_xt=(16, 16), fourier_dim=8, ode_steps=4)
     target = pcli.make_target("many-well", "cpu")
     run = run_mfm(target, cfg, "cpu")
-    pieces = build_mfm(target, cfg, "cpu", torch.Generator().manual_seed(cfg.seed))
+    pieces = build_mfm(target, cfg, "cpu", init_generator(cfg.seed))
     gen = make_generator("cpu", cfg.seed)
     carry = pieces.init_fn(target.init_positions(gen, cfg.num_chain))
     for count in range(1, cfg.learning_iter + 1):

@@ -143,6 +143,25 @@ def _tree_np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+def flax_from_params(params: dict) -> dict:
+    """The flax tree of a ``VectorFieldNet`` from the port's ``{name:
+    tensor}`` parameters: the inverse of ``utils.convert.params_from_flax``
+    (a ``Dense`` kernel is (in, out), ``nn.Linear.weight`` (out, in))."""
+    tree = {}
+    for name, v in params.items():
+        if name == "fourier_freqs":
+            continue
+        layer, kind = name.rsplit(".", 1)
+        arr = jnp.asarray(npy(v).T if kind == "weight" else npy(v))
+        if "." in layer:  # a trunk's layer i
+            trunk, i = layer.split(".")
+            node = tree.setdefault(trunk, {}).setdefault(f"Dense_{i}", {})
+        else:  # a head
+            node = tree.setdefault(layer, {})
+        node["kernel" if kind == "weight" else "bias"] = arr
+    return {"params": tree}
+
+
 def port_mfm_carry(jcarry) -> MFMCarry:
     """The port's ``MFMCarry`` of a reference ``MFMCarry``: one run's, or a
     seed sweep's with every leaf stacked on a leading seed axis (the

@@ -21,7 +21,18 @@ own sweeps to these rows: ``chip_smoke.py``'s band phases on the card and
 ``--many-well`` runs many-well as preset at ``learning_iter=100`` over the
 same seeds and records, for each seed, whether the flow row is finite and
 how many of its 12,800 eval samples and log-weights are not; with
-``--seeds FIRST-LAST`` over those seeds instead, into ``many_well_more``.
+``--seeds FIRST-LAST`` over those seeds instead, merged by seed into
+``many_well_more`` (a seed already there is replaced, the others kept).
+``--out PATH`` writes that section to a file of its own instead, so that
+ranges run in parallel processes never race on the JSON; ``--merge PATH
+...`` then merges such files' rows into it. ``--curves PATH`` appends one
+JSON line a seed: every iteration's training metrics (``run_mfm``'s
+``metrics``) and AdamW's count of skipped non-finite steps
+(``tools/many_well_curves.py`` compares two packages' curves).
+
+    python tools/seed_band_reference.py --many-well --seeds 1020-1039 \
+        --out /tmp/mw_1020.json --curves /tmp/mw_1020.jsonl
+    python tools/seed_band_reference.py --merge /tmp/mw_1020.json /tmp/mw_1040.json
 
 The file's ``notes`` say what the reference computes differently on a CPU
 from the port on the card (``NOTES``).
@@ -53,6 +64,7 @@ from mfm_tpu.cli import make_target  # noqa: E402
 from mfm_tpu.drivers import evaluate_samples, run_mfm, sample_flow  # noqa: E402
 
 OUT = ROOT / "tools" / "seed_band_reference.json"
+RUNS = {}  # seed -> the last run of seed_run, for --curves
 SEEDS = [i**10 for i in range(10)]
 COMMON = dict(
     num_chain=64, hidden_x=(32, 32), hidden_t=(32, 32), hidden_xt=(32, 32), fourier_dim=16,
@@ -125,6 +137,7 @@ def seed_run(example, overrides, seed):
     real = target.sample(jax.random.fold_in(key, 1000), (n,)) if target.can_sample else None
     run = run_mfm(target, cfg)
     flow, exact, log_w = sample_flow(run, jax.random.fold_in(key, 999), n, target)
+    RUNS[seed] = run
     m = evaluate_samples(target, flow, exact, real)
     w = jax.nn.softmax(log_w)
     m["is_log_z"] = float(jax.scipy.special.logsumexp(log_w)) - math.log(n)
@@ -157,9 +170,20 @@ def band(name, seeds):
     )
 
 
-def many_well(seeds):
+def curve(seed, run):
+    """One seed's training curves: every iteration's metrics and AdamW's
+    skipped steps (applied steps fewer than iterations)."""
+    opt = run.train.opt_state
+    return dict(package="reference", seed=seed,
+                metrics={k: np.asarray(v, np.float64).tolist() for k, v in run.metrics.items()},
+                skipped=int(run.train.step) - int(opt.count),
+                notfinite_count=int(opt.notfinite_count))
+
+
+def many_well(seeds, curves=None):
     """many-well as preset at learning_iter=100: each seed's flow row and
-    its non-finite eval samples and log-weights."""
+    its non-finite eval samples and log-weights; with ``curves`` a path,
+    each seed's training curves appended there."""
     out = []
     for s in seeds:
         t0 = time.perf_counter()
@@ -172,8 +196,23 @@ def many_well(seeds):
                    **row, seconds=time.perf_counter() - t0)
         out.append(rec)
         print(f"[many-well] {json.dumps(rec)}", flush=True)
+        if curves:
+            with open(curves, "a") as fh:
+                fh.write(json.dumps(curve(s, RUNS.pop(s))) + "\n")
+        RUNS.clear()
     return dict(example="many-well", overrides=MANY_WELL, seeds=list(seeds), rows=out,
                 jax_version=jax.__version__)
+
+
+def merge_rows(old, new):
+    """A many-well section whose rows are ``old``'s and ``new``'s by seed
+    (``new``'s where both have one), sorted by seed."""
+    rows = {r["seed"]: r for r in (old or {}).get("rows", [])}
+    rows.update({r["seed"]: r for r in new["rows"]})
+    merged = {**(old or {}), **{k: v for k, v in new.items() if k != "rows"}}
+    merged["rows"] = [rows[k] for k in sorted(rows)]
+    merged["seeds"] = sorted(rows)
+    return merged
 
 
 def main(argv=None):
@@ -183,21 +222,42 @@ def main(argv=None):
     p.add_argument("--many-well", action="store_true",
                    help="many-well's NaN rows instead of the bands")
     p.add_argument("--seeds", default=None, metavar="FIRST-LAST",
-                   help="with --many-well: these seeds instead, into many_well_more")
+                   help="with --many-well: these seeds instead, merged into many_well_more")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="with --seeds: write the section to PATH, not into the JSON")
+    p.add_argument("--merge", nargs="+", default=None, metavar="PATH",
+                   help="merge the rows of --out files into many_well_more")
+    p.add_argument("--curves", default=None, metavar="PATH",
+                   help="with --many-well: append each seed's training curves to PATH")
     args = p.parse_args(argv)
     if args.seeds and not args.many_well:
         p.error("--seeds applies to --many-well only: the bands use the replication seeds")
-    if args.seeds:
+    if (args.out or args.curves) and not args.many_well:
+        p.error("--out and --curves apply to --many-well only")
+    if args.out and not args.seeds:
+        p.error("--out writes a --seeds range")
+    if args.merge:
+        new = {}
+        for path in args.merge:
+            part = json.loads(Path(path).read_text())["many_well_more"]
+            new = merge_rows(new, part) if new else part
+    elif args.seeds:
         first, _, last = args.seeds.partition("-")
-        new = {"many_well_more": many_well(list(range(int(first), int(last or first) + 1)))}
+        new = many_well(list(range(int(first), int(last or first) + 1)), args.curves)
+        if args.out:
+            Path(args.out).write_text(json.dumps({"many_well_more": new}, indent=1) + "\n")
+            return
     elif args.many_well:
-        new = {"many_well": many_well(SEEDS)}
+        new = {"many_well": many_well(SEEDS, args.curves)}
     else:
         new = {"bands": {n: band(n, SEEDS) for n in (args.bands or BANDS)}}
     # read only now: another run may have written other sections meanwhile
     data = json.loads(OUT.read_text()) if OUT.exists() else {}
-    data.setdefault("bands", {}).update(new.get("bands", {}))
-    data.update({k: v for k, v in new.items() if k != "bands"})
+    if args.merge or args.seeds:
+        data["many_well_more"] = merge_rows(data.get("many_well_more"), new)
+    else:
+        data.setdefault("bands", {}).update(new.get("bands", {}))
+        data.update({k: v for k, v in new.items() if k != "bands"})
     data["generator"] = "tools/seed_band_reference.py"
     data["notes"] = NOTES
     OUT.write_text(json.dumps(data, indent=1) + "\n")
