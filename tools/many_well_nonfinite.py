@@ -205,12 +205,17 @@ def scan_noise(args):
                       "seeds_over": sum(any(r["over"].values()) for r in recs), "rows": recs}))
 
 
-def patch_draws(cfg, device, seeds, noise, cpu_init, reference_init=None, clamp=None):
+def cpu_positions(target, seed, n_chain):
+    """The initial positions a run of ``seed`` on the CPU draws."""
+    return target.init_positions(make_generator("cpu", seed), n_chain)
+
+
+def patch_draws(cfg, device, seeds, noise, positions=None, reference_init=None, clamp=None):
     """Make ``build_mfm`` (a sweep's over ``seeds``, or one run's at
     ``cfg.seed``) draw each iteration's noise from the reference's keys
-    (``noise == "reference"``); with ``cpu_init`` start from the initial
-    positions a run on the CPU draws (``make_generator("cpu", seed)``),
-    moved to ``device``; with ``reference_init`` (a file of
+    (``noise == "reference"``); with ``positions`` (``(target, seed,
+    n_chain) -> (n_chain, d)``, say ``cpu_positions``) start from those
+    initial positions, moved to ``device``; with ``reference_init`` (a file of
     ``tools/many_well_arms.py --save-init``) from the reference's initial
     positions, Fourier frequencies and weights; with ``clamp`` every
     standard normal of the step noise clamped to [-clamp, clamp]."""
@@ -223,14 +228,14 @@ def patch_draws(cfg, device, seeds, noise, cpu_init, reference_init=None, clamp=
         pieces = build_mfm(target, cfg_, device_, init_generator_, mesh)
         swept = not isinstance(init_generator_, torch.Generator)
         run_seeds = seeds if swept else [cfg_.seed]
-        if cpu_init:
-            positions = torch.cat([target.init_positions(make_generator("cpu", s), cfg_.num_chain)
-                                   for s in run_seeds]).to(device_)
+        if positions is not None:
+            start = torch.cat([positions(target, s, cfg_.num_chain)
+                               for s in run_seeds]).to(device_)
             init_fn = pieces.init_fn
-            pieces = pieces._replace(init_fn=lambda _: init_fn(positions))
+            pieces = pieces._replace(init_fn=lambda _: init_fn(start))
         if reference_init is not None:
             drawn = [reference_init[s] for s in run_seeds]
-            positions = torch.cat([d[0] for d in drawn]).to(device_)
+            start_ref = torch.cat([d[0] for d in drawn]).to(device_)
             freqs = torch.stack([d[1] for d in drawn]).to(device_)
             with torch.no_grad():
                 pieces.fourier.copy_(freqs if swept else freqs[0])
@@ -238,7 +243,7 @@ def patch_draws(cfg, device, seeds, noise, cpu_init, reference_init=None, clamp=
                       for d in drawn]
             train = stack_trees(states) if swept else states[0]
             init_fn = pieces.init_fn
-            pieces = pieces._replace(init_fn=lambda _: init_fn(positions)._replace(train=train))
+            pieces = pieces._replace(init_fn=lambda _: init_fn(start_ref)._replace(train=train))
         if clamp is not None:
             draw_own = pieces.draw_step_noise
             pieces = pieces._replace(
@@ -369,7 +374,8 @@ def main(argv=None):
     if args.noise == "reference" or args.cpu_init or args.reference_init or clamp:
         patch_draws(config.preset("many-well", learning_iter=args.learning_iter,
                                   **cli._parse_set(args.set)),
-                    args.device, args.seeds, args.noise, args.cpu_init,
+                    args.device, args.seeds, args.noise,
+                    cpu_positions if args.cpu_init else None,
                     torch.load(args.reference_init) if args.reference_init else None, clamp)
     t0 = time.perf_counter()
     if args.single:
