@@ -1,0 +1,7 @@
+"""Milliseconds of an evaluation's transport: CUDA events around that call in
+every evaluation of the traced window, their total over their count."""
+
+
+def read(r):
+    total = r["spans"].get("eval.transport")
+    return total[0] / total[1] if total and total[1] else None
