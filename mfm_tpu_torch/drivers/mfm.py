@@ -111,6 +111,7 @@ from mfm_tpu_torch.parallel.mesh import ChainMesh, make_mesh, shard_chains
 from mfm_tpu_torch.smc.solvers import bisection
 from mfm_tpu_torch.targets import make_ref_dist
 from mfm_tpu_torch.targets.base import PriorReference, Target
+from mfm_tpu_torch.utils import profiling
 from mfm_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
@@ -529,25 +530,33 @@ def build_mfm(
         return chain, torch.where(live, new_beta, beta)
 
     def step_fn(carry: MFMCarry, count: int, move_noise, fm_noise: FMNoise):
-        chain, acc, da, wf, inv_mass = data_step(carry, count, move_noise)
-        grads, loss = loss_and_grad(carry.train.params, chain.position, fm_noise)
-        train = apply_grads(carry.train, grads)
-        beta = carry.beta
-        if (not use_real_samples and count % cfg.iter_per_temp == 0
-                and bool((beta < 1.0).any())):
-            chain, beta = temper_step(chain, beta)
-        per_seed = axis.split(acc)
-        mean = torch.nanmean(per_seed, dim=-1)
-        metrics = {
-            "loss": loss.detach(),
-            "learning_rate": lr_fn(carry.train.step),
-            "acceptance_mean": mean,
-            "acceptance_std": torch.sqrt(torch.nanmean((per_seed - mean[..., None]) ** 2, dim=-1)),
-            "beta": beta,
-        }
-        if adapt_step:  # after this iteration's update (the averaged one once frozen)
-            metrics["step_size"] = step_size_of(da, count)
-        return MFMCarry(chain, train, beta, da, wf, inv_mass), metrics
+        flow = not use_real_samples and _interleave_is_flow(count, cfg.mcmc_per_flow_steps)
+        with profiling.span("step.flow" if flow else "step.mcmc"):
+            with profiling.span("move"):
+                chain, acc, da, wf, inv_mass = data_step(carry, count, move_noise)
+            with profiling.span("fm_grad"):
+                grads, loss = loss_and_grad(carry.train.params, chain.position, fm_noise)
+            with profiling.span("adamw"):
+                train = apply_grads(carry.train, grads)
+            beta = carry.beta
+            with profiling.span("temper"):
+                if not use_real_samples and count % cfg.iter_per_temp == 0:
+                    profiling.count("sync")
+                    if bool((beta < 1.0).any()):
+                        chain, beta = temper_step(chain, beta)
+            per_seed = axis.split(acc)
+            mean = torch.nanmean(per_seed, dim=-1)
+            metrics = {
+                "loss": loss.detach(),
+                "learning_rate": lr_fn(carry.train.step),
+                "acceptance_mean": mean,
+                "acceptance_std": torch.sqrt(
+                    torch.nanmean((per_seed - mean[..., None]) ** 2, dim=-1)),
+                "beta": beta,
+            }
+            if adapt_step:  # after this iteration's update (the averaged one once frozen)
+                metrics["step_size"] = step_size_of(da, count)
+            return MFMCarry(chain, train, beta, da, wf, inv_mass), metrics
 
     return MFMPieces(
         step_fn=step_fn, init_fn=init_fn, draw_step_noise=draw_step_noise, net=net,
@@ -666,6 +675,7 @@ def train_loop(pieces: MFMPieces, cfg, device, carry: MFMCarry, gen, warm_gen,
         done += take
         chunks_done += 1
         if logger is not None:
+            profiling.count("sync", len(m) + (eval_loss is not None))
             chunk_mean = {k: float(torch.mean(v)) for k, v in m.items()}
             chunk_mean["iter"] = done
             chunk_mean["train_time"] = time.perf_counter() - train_start

@@ -60,6 +60,7 @@ from mfm_tpu_torch.ops.field import (
     field_layout,
     pack_field_params,
 )
+from mfm_tpu_torch.utils import profiling
 
 EXACT_CHUNK = 64  # basis tangents per field call in the exact divergence
 # exact_disc carries d tangents of d entries a sample and ends in a (B, d, d)
@@ -112,18 +113,21 @@ def module_tangent_field(net: torch.nn.Module, freqs: Optional[torch.Tensor] = N
             mlp_params["net.fourier_freqs"] = freqs
 
         def f(x, t, ex):
-            if seeds:
-                S = freqs.shape[0]
-                dfield, field, gate = vmap(tangents, in_dims=(0, 0, 0, 1), out_dims=(1, 0, 0))(
-                    mlp_params, *_seed_rows(S, x, t, ex))
-                dfield, field, gate = dfield.flatten(1, 2), field.flatten(0, 1), gate.flatten(0, 1)
-            else:
-                dfield, field, gate = tangents(mlp_params, x, t, ex)
+            with profiling.span("stage.field"):
+                if seeds:
+                    S = freqs.shape[0]
+                    dfield, field, gate = vmap(
+                        tangents, in_dims=(0, 0, 0, 1), out_dims=(1, 0, 0))(
+                        mlp_params, *_seed_rows(S, x, t, ex))
+                    dfield, field, gate = (dfield.flatten(1, 2), field.flatten(0, 1),
+                                           gate.flatten(0, 1))
+                else:
+                    dfield, field, gate = tangents(mlp_params, x, t, ex)
             if gate_fn is None:
                 return field, dfield
-            return gate_fn(
-                x.contiguous(), gate, field, ex.contiguous(), dfield.contiguous(), net.score_clip
-            )
+            with profiling.span("stage.gate"):
+                return gate_fn(x.contiguous(), gate, field, ex.contiguous(), dfield.contiguous(),
+                               net.score_clip)
 
         return f
 
@@ -142,11 +146,13 @@ def kernel_tangent_field(net: torch.nn.Module, freqs: Optional[torch.Tensor] = N
         gate_fn = net.score_gate
 
         def f(x, t, ex):
-            x, ex = x.contiguous(), ex.contiguous()
-            field, gate, dfield = field_apply(packed, layout, net.act_name, fr, x, t, ex)
+            with profiling.span("stage.field"):
+                x, ex = x.contiguous(), ex.contiguous()
+                field, gate, dfield = field_apply(packed, layout, net.act_name, fr, x, t, ex)
             if gate_fn is None:
                 return field, dfield
-            return gate_fn(x, gate, field, ex, dfield, net.score_clip)
+            with profiling.span("stage.gate"):
+                return gate_fn(x, gate, field, ex, dfield, net.score_clip)
 
         return f
 
@@ -170,9 +176,11 @@ def exact_divergence(f, x, t, basis=None):
         basis = exact_basis(x)
     div = torch.zeros(B, dtype=x.dtype, device=x.device)
     for i0, chunk in zip(range(0, d, EXACT_CHUNK), basis):
-        idx = torch.arange(i0, i0 + chunk.shape[0], device=x.device)
         v, jv = f(x, t, chunk)
-        div = div + jv[torch.arange(len(idx), device=x.device), :, idx].sum(0)
+        with profiling.span("stage.divergence"):
+            k = chunk.shape[0]
+            idx = torch.arange(i0, i0 + k, device=x.device)
+            div = div + jv[torch.arange(k, device=x.device), :, idx].sum(0)
     return v, div
 
 
@@ -180,7 +188,8 @@ def hutchinson_divergence(f, x, t, probe):
     """(v, p^T J p), averaged over K probes when ``probe`` is (K, B, d)."""
     probes = probe[None] if probe.ndim == x.ndim else probe
     v, jv = f(x, t, probes)
-    return v, torch.mean(torch.sum(probes * jv, dim=-1), dim=0)
+    with profiling.span("stage.divergence"):
+        return v, torch.mean(torch.sum(probes * jv, dim=-1), dim=0)
 
 
 _DIVERGENCES = {"exact": exact_divergence, "hutchinson": hutchinson_divergence}

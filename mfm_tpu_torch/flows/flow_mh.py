@@ -30,6 +30,7 @@ import torch
 
 from mfm_tpu_torch.flows.cnf import Transport, draw_probe
 from mfm_tpu_torch.kernels.base import ChainInfo, ChainState
+from mfm_tpu_torch.utils import profiling
 
 
 class FlowTarget(NamedTuple):
@@ -61,15 +62,16 @@ class CisNoise(NamedTuple):
 
 def _mh_accept(state: ChainState, log_ratio, u_accept, x_prop, prop_ld, prop_grad):
     """Accept where u < min(1, exp(log_ratio)); a nan ratio rejects."""
-    log_ratio = torch.where(torch.isnan(log_ratio), -torch.inf, log_ratio)
-    p_accept = torch.exp(torch.clamp(log_ratio, max=0.0))
-    accept = u_accept < p_accept
-    new_state = ChainState(
-        torch.where(accept[:, None], x_prop, state.position),
-        torch.where(accept, prop_ld, state.logdensity),
-        torch.where(accept[:, None], prop_grad, state.logdensity_grad),
-    )
-    return new_state, ChainInfo(p_accept, accept, x_prop, torch.zeros_like(p_accept))
+    with profiling.span("flow.accept"):
+        log_ratio = torch.where(torch.isnan(log_ratio), -torch.inf, log_ratio)
+        p_accept = torch.exp(torch.clamp(log_ratio, max=0.0))
+        accept = u_accept < p_accept
+        new_state = ChainState(
+            torch.where(accept[:, None], x_prop, state.position),
+            torch.where(accept, prop_ld, state.logdensity),
+            torch.where(accept[:, None], prop_grad, state.logdensity_grad),
+        )
+        return new_state, ChainInfo(p_accept, accept, x_prop, torch.zeros_like(p_accept))
 
 
 def pullback_rwm(
@@ -85,11 +87,14 @@ def pullback_rwm(
     """One ensemble step. ``eps`` (B, d) standard normal, ``u_accept`` (B,)
     uniform, Hutchinson probes for the inverse / forward transports."""
     B, d = state.position.shape
-    u_cur, logdet_cur = transport.inverse(params, state.position, probe_inv)
+    with profiling.span("flow.inverse"):
+        u_cur, logdet_cur = transport.inverse(params, state.position, probe_inv)
     u_prop = u_cur + (2.38 / math.sqrt(d)) * eps
-    x_prop, logdet_prop = transport.forward(params, u_prop, probe_fwd)
+    with profiling.span("flow.forward"):
+        x_prop, logdet_prop = transport.forward(params, u_prop, probe_fwd)
 
-    prop_ld, prop_grad = tgt.value_and_score(x_prop)
+    with profiling.span("flow.target"):
+        prop_ld, prop_grad = tgt.value_and_score(x_prop)
     log_ratio = (prop_ld + logdet_prop) - (state.logdensity + logdet_cur)
     return _mh_accept(state, log_ratio, u_accept, x_prop, prop_ld, prop_grad)
 
@@ -106,10 +111,13 @@ def independence_mh(
 ):
     """Whole-ensemble independence MH through the flow. ``u_prop`` (B, d)
     are fresh reference draws, ``u_accept`` (B,) uniform."""
-    x_prop, logdet_prop = transport.forward(params, u_prop, probe_fwd)
-    u_cur, logdet_cur = transport.inverse(params, state.position, probe_inv)
+    with profiling.span("flow.forward"):
+        x_prop, logdet_prop = transport.forward(params, u_prop, probe_fwd)
+    with profiling.span("flow.inverse"):
+        u_cur, logdet_cur = transport.inverse(params, state.position, probe_inv)
 
-    prop_ld, prop_grad = tgt.value_and_score(x_prop)
+    with profiling.span("flow.target"):
+        prop_ld, prop_grad = tgt.value_and_score(x_prop)
     logq_prop = tgt.ref_log_prob(u_prop) - logdet_prop
     logq_cur = tgt.ref_log_prob(u_cur) - logdet_cur
     log_ratio = (prop_ld - logq_prop) - (state.logdensity - logq_cur)
@@ -134,22 +142,28 @@ def cis_refresh(
     -inf), taken as ``argmax(gumbel + logw)``; the gradient is recomputed
     on the selected positions."""
     B, d = state.position.shape
-    u_cur, logdet_cur = transport.inverse(params, state.position, probe_inv)
+    with profiling.span("flow.inverse"):
+        u_cur, logdet_cur = transport.inverse(params, state.position, probe_inv)
     prev_logw = state.logdensity - (tgt.ref_log_prob(u_cur) - logdet_cur)
 
-    x_new, logdet_new = transport.forward(params, u_new, probe_fwd)
-    new_ld = tgt.value_and_score(x_new)[0]
+    with profiling.span("flow.forward"):
+        x_new, logdet_new = transport.forward(params, u_new, probe_fwd)
+    with profiling.span("flow.target"):
+        new_ld = tgt.value_and_score(x_new)[0]
     logw = new_ld - (tgt.ref_log_prob(u_new) - logdet_new)
 
-    all_logw = torch.cat([prev_logw[:, None], logw.reshape(B, num_samples)], dim=1)
-    all_logw = torch.where(torch.isnan(all_logw), -torch.inf, all_logw)
-    choice = torch.argmax(gumbel + all_logw, dim=1)  # (B,)
+    with profiling.span("flow.accept"):
+        all_logw = torch.cat([prev_logw[:, None], logw.reshape(B, num_samples)], dim=1)
+        all_logw = torch.where(torch.isnan(all_logw), -torch.inf, all_logw)
+        choice = torch.argmax(gumbel + all_logw, dim=1)  # (B,)
 
-    cand_pos = torch.cat([state.position[:, None, :], x_new.reshape(B, num_samples, d)], dim=1)
-    cand_ld = torch.cat([state.logdensity[:, None], new_ld.reshape(B, num_samples)], dim=1)
-    rows = torch.arange(B, device=choice.device)
-    sel_pos, sel_ld = cand_pos[rows, choice], cand_ld[rows, choice]
-    sel_grad = tgt.value_and_score(sel_pos)[1]
+        cand_pos = torch.cat([state.position[:, None, :], x_new.reshape(B, num_samples, d)],
+                             dim=1)
+        cand_ld = torch.cat([state.logdensity[:, None], new_ld.reshape(B, num_samples)], dim=1)
+        rows = torch.arange(B, device=choice.device)
+        sel_pos, sel_ld = cand_pos[rows, choice], cand_ld[rows, choice]
+    with profiling.span("flow.target"):
+        sel_grad = tgt.value_and_score(sel_pos)[1]
 
     sel_w = torch.softmax(all_logw, dim=1)[rows, choice]
     return ChainState(sel_pos, sel_ld, sel_grad), ChainInfo(sel_w, choice != 0, sel_pos, sel_w)

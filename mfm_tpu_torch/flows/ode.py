@@ -10,6 +10,8 @@ from typing import Callable
 
 import torch
 
+from mfm_tpu_torch.utils import profiling
+
 
 def _map(fn, *trees):
     if isinstance(trees[0], tuple):
@@ -41,6 +43,7 @@ def _euler_step(f: Callable, y, t, dt):
 
 
 _STEPPERS = {"rk4": _rk4_step, "heun": _heun_step, "euler": _euler_step}
+_STAGES = {"rk4": 4, "heun": 2, "euler": 1}  # field evaluations a step
 
 
 def odeint_grid(
@@ -52,6 +55,7 @@ def odeint_grid(
     step = _STEPPERS[method]
     dt = (t1 - t0) / n_steps
     ts = (t0 + dt * torch.arange(n_steps, dtype=torch.float32)).tolist()
+    profiling.count("stages", n_steps * _STAGES[method])
     y = y0
     for t in ts:
         y = step(f, y, t, dt)

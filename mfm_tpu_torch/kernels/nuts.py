@@ -42,6 +42,7 @@ import torch
 
 from mfm_tpu_torch.kernels.base import ChainState, SamplingAlgorithm, draw
 from mfm_tpu_torch.kernels.mala import init
+from mfm_tpu_torch.utils import profiling
 
 
 class NUTSInfo(NamedTuple):
@@ -210,6 +211,7 @@ def build_kernel(
         nlv = torch.zeros(B, device=z.q.device)
         for i in range(leaf_u.shape[0]):
             grow = active & ~turning & ~diverging
+            profiling.count("sync")
             if not bool(grow.any()):  # host read: the reference's while condition
                 break
             z_new = _where_z(grow, _leapfrog(value_and_score, z, step, inv_mass, direction), z)
@@ -265,8 +267,10 @@ def build_kernel(
         n_leaves = torch.zeros(B, device=dev)
         depths = torch.zeros(B, device=dev)
         for j in range(max_depth):
-            if j and not bool(active.any()):  # host read: nothing left to grow
-                break
+            if j:
+                profiling.count("sync")
+                if not bool(active.any()):  # host read: nothing left to grow
+                    break
             direction = torch.where(noise.direction_u[j] < 0.5, 1.0, -1.0)
             start = _where_z(direction > 0, traj_right, traj_left)
             off = tree_offset(j, variant)

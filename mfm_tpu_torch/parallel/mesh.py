@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from mfm_tpu_torch.utils import profiling
+
 AXIS_NAMES = ("ensemble", "chains")
 
 
@@ -154,7 +156,10 @@ class ChainMesh:
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         """The buffer a collective takes: on the host under gloo."""
         t = t.contiguous()
-        return t.cpu() if self.backend == "gloo" and t.is_cuda else t
+        if self.backend == "gloo" and t.is_cuda:
+            profiling.count("sync")
+            return t.cpu()
+        return t
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over ranks, on every rank (a NaN on one rank is a NaN on all)."""

@@ -16,34 +16,20 @@ Builds the example's run with ``build_mfm``, at its initial carry. For
 and pallas_field=true (the fused field kernel) unless ``--set`` says
 otherwise; ``--set field_precision=default --set pallas_field=false``
 profiles the preset as shipped (the bf16 nn.Module field). Any other
-``--example`` runs its preset as shipped, with ``--set`` on top. A stage is
-timed with the tangents the run's divergence gives it: the d basis vectors
-(exact) or one probe (Hutchinson); the K1 piece only where the run uses K1.
-It prints two JSON lines:
-
-1. ``pieces``: host-clock ms per call, after a warm call, over ``--reps``
-   calls that end in a device synchronisation: a MALA-type and a flow-type
-   ``step_fn``, one forward transport, one RK4 stage with the exact
-   divergence and its parts (K1 with d tangents, whichever field the run
-   uses; the score gate with its d tangents on the run's route, which is
-   PhiFour's fused kernel, and on the generic route, ``vmap(jvp)`` of the
-   score); ``PhiFour.value_and_score``, the FM loss gradient, AdamW, and
-   the tempering bisection;
-2. ``profiled``: for ``--mala-steps`` MALA-type iterations and for one
-   flow-type iteration under ``torch.profiler``, the wall time of the
-   profiled region, the device-busy time inside it (the union of the
-   kernels' intervals), their ratio, and the number of kernel launches.
-   Wall and busy time come from the same run; the wall includes the
-   profiler's own overhead, so the busy share is a lower bound.
-
-Then the top of the flow iteration's ``key_averages()`` table. The
-MCMC-type iteration is the preset's kernel (``--set mcmc_kernel=nuts``
-for NUTS, with its in-loop adaptation).
+``--example`` runs its preset as shipped, with ``--set`` on top. After a
+warm call of each, one MCMC-type and one flow-type ``step_fn`` run under
+``utils.profiling.trace`` into ``build/profile_slice/steps``: it prints the
+``spans.json`` summary (each of the program's spans by path: count, host
+ms in all and self, device ms from its CUDA events, the device time it
+launched and the idle gaps charged to it; the counters; the device's busy
+and idle time and kernels), then the top of the kernels' ``key_averages()``
+table. The MCMC-type iteration is the preset's kernel (``--set
+mcmc_kernel=nuts`` for NUTS, with its in-loop adaptation).
 
 ``--do-smc`` profiles one step of the SMC baseline instead (``build_smc``
 at the example's preset, after a warm step): host ms over ``--reps``
-steps, and one step under the profiler (wall, device-busy time, launches);
-and the ESS solve at that step's log-likelihoods two ways, the early-exit
+steps, and one step under ``utils.profiling.trace`` (as below, each mode
+into its own directory under ``build/profile_slice``); and the ESS solve at that step's log-likelihoods two ways, the early-exit
 bisection reading its condition on the host each trip
 (``smc.solvers.dichotomy``) against the same bisection with all 100 trips
 masked and queued without a read (host ms each, and their trip counts).
@@ -52,12 +38,12 @@ masked and queued without a read (host ms each, and their trip counts).
 example's preset (the widths and batch ``cli.py`` gives it): a FAB epoch
 after one prefill pass (and its AIS pass and one gradient update alone), a
 flowMC round, a DDS iteration; host ms over ``--reps`` steps after a warm
-one, and one step under the profiler.
+one, and one step traced.
 
 ``--flow-smc`` profiles one flow-SMC tempering step (latent MALA through
 the run's eval transport: two forward transports and two forward and
 reverse passes) on the untrained net of the initial carry, at
-``num_chain`` particles: host ms of one step and one step profiled.
+``num_chain`` particles: host ms of one step and one step traced.
 """
 
 import argparse
@@ -68,24 +54,16 @@ import time
 from pathlib import Path
 
 import torch
-from torch.func import grad_and_value
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 
 from mfm_tpu_torch.cli import EXAMPLES, _parse_set  # noqa: E402
 from mfm_tpu_torch.config import preset  # noqa: E402
-from mfm_tpu_torch.drivers.mfm import (  # noqa: E402
-    _interleave_is_flow,
-    build_mfm,
-    make_generator,
-    next_beta,
-)
-from mfm_tpu_torch.flows import apply_gradients, draw_probe  # noqa: E402
-from mfm_tpu_torch.flows.cnf import _DIVERGENCES  # noqa: E402
-from mfm_tpu_torch.ops.field import field_apply, field_layout, pack_field_params  # noqa: E402
-from mfm_tpu_torch.targets.base import generic_score_gate  # noqa: E402
+from mfm_tpu_torch.drivers.mfm import _interleave_is_flow, build_mfm, make_generator  # noqa: E402
+from mfm_tpu_torch.utils import profiling  # noqa: E402
 
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+TRACES = ROOT / "build" / "profile_slice"
 
 
 def _sync(device):
@@ -103,36 +81,26 @@ def host_ms(fn, reps: int, device) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def profiled(fn, device):
-    """(summary, profile) of one call of ``fn`` (already warm)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+def traced(fn, device, name: str):
+    """(``spans.json``, profile) of one call of ``fn`` (already warm) under
+    ``utils.profiling.trace`` into ``TRACES / name``; prints the summary."""
+    out = TRACES / name
+    with profiling.trace(str(out), device) as prof:
         fn()
-        _sync(device)
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.events()
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in events
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    busy_us, end = 0.0, None
-    for s, e in spans:  # union of the kernels' intervals
-        if end is None or s >= end:
-            busy_us, end = busy_us + (e - s), e
-        elif e > end:
-            busy_us, end = busy_us + (e - end), e
-    summary = {
-        "wall_ms": wall_us / 1e3,
-        "device_busy_ms": busy_us / 1e3 if spans else "not measured",
-        "busy_share": busy_us / wall_us if spans else "not measured",
-        "device_events": len(spans),
-        "launches": sum(1 for e in events if e.name in LAUNCH_CALLS),
-    }
+    summary = json.loads((out / "spans.json").read_text())
+    print(f"trace: {out}/trace.json; window {summary['window_ms']:.3f} ms; device "
+          f"{json.dumps(summary.get('device', 'not measured'))}", flush=True)
+    print(f"{'span':<52} {'count':>6} {'host ms':>10} {'self ms':>10} {'device ms':>10} "
+          f"{'launched':>10} {'idle ms':>9} {'gaps':>6}", flush=True)
+    for path, row in summary["spans"].items():
+        cells = [row.get(k) for k in ("device_ms", "launched_ms", "idle_ms")]
+        print(f"{path:<52} {row['count']:>6} {row['host_ms']:>10.3f} {row['self_ms']:>10.3f} "
+              + " ".join(f"{'-' if v is None else f'{v:.3f}':>{w}}"
+                         for v, w in zip(cells, (10, 10, 9)))
+              + f" {row.get('idle_gaps', '-'):>6}", flush=True)
+    print(f"counters {json.dumps(summary['counters'])}", flush=True)
+    sort_by = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
+    print(prof.key_averages().table(sort_by=sort_by, row_limit=12), flush=True)
     return summary, prof
 
 
@@ -141,7 +109,6 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--example", default="phi-four", choices=list(EXAMPLES))
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--mala-steps", type=int, default=10)
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a field of the example's preset (repeatable)")
     ap.add_argument("--do-smc", action="store_true", help="profile one SMC baseline step")
@@ -182,67 +149,9 @@ def main():
     print(f"cfg {args.example} B={cfg.num_chain} d={cfg.dim} widths={tuple(cfg.hidden_xt)} "
           f"F={cfg.fourier_dim} ode_steps={cfg.ode_steps} {cfg.divergence} "
           f"field_precision={cfg.field_precision} pallas_field={cfg.pallas_field}", flush=True)
-
-    params = carry.train.params
-    x = carry.chain.position.contiguous()
-    B, d = x.shape
-    t = torch.full((B,), 0.5, device=device)
-    probe = draw_probe(pieces.transport, gen, B, d)  # None unless Hutchinson
-    if probe is None:
-        basis = torch.eye(d, device=device)[:, None, :].expand(d, B, d).contiguous()
-    else:
-        basis = probe.reshape(-1, B, d).contiguous()  # the stage's tangents: the probes
-    div_fn = _DIVERGENCES.get(cfg.divergence, _DIVERGENCES["exact"])
-    f = pieces.field_bind(params)
-    loss_grad = grad_and_value(pieces.loss_fn)
-    grads, _ = loss_grad(params, x, noise[mala_count][1])
-    step = lambda c: pieces.step_fn(carry, c, *noise[c])
-
-    reps = args.reps
-    gate, field = 0.01 * torch.randn_like(x), torch.zeros_like(x)
-    dfield = torch.zeros_like(basis)
-    with torch.no_grad():
-        stage = {
-            f"stage_{cfg.divergence}_div_ms": host_ms(
-                lambda: div_fn(f, x, t, probe), reps, device),
-            # in place on field and dfield (the fused route): fine for timing
-            "stage_score_gate_ms": host_ms(
-                lambda: pieces.net.score_gate(x, gate, field, basis, dfield), reps, device
-            ),
-            "stage_score_gate_generic_ms": host_ms(
-                lambda: generic_score_gate(target.score, x, gate, field, basis, dfield),
-                reps, device,
-            ),
-            "transport_fwd_ms": host_ms(
-                lambda: pieces.transport.forward(params, x, probe), 1, device),
-        }
-        if cfg.pallas_field:
-            layout = field_layout(params, cfg.fourier_dim)
-            packed = pack_field_params(params, layout)
-            freqs = pieces.net.fourier_freqs.contiguous()
-            stage["stage_K1_ms"] = host_ms(
-                lambda: field_apply(packed, layout, cfg.non_linearity, freqs, x, t, basis),
-                reps, device,
-            )
-    pieces_ms = {
-        f"step_{cfg.mcmc_kernel}_ms": host_ms(lambda: step(mala_count), reps, device),
-        "step_flow_ms": host_ms(lambda: step(flow_count), 1, device),
-        **stage,
-        "value_and_score_ms": host_ms(lambda: target.value_and_score(x), reps, device),
-        "loss_grad_ms": host_ms(lambda: loss_grad(params, x, noise[mala_count][1]), reps, device),
-        "adamw_ms": host_ms(lambda: apply_gradients(carry.train, grads, pieces.tx), reps, device),
-        "temper_ms": host_ms(
-            lambda: next_beta(carry.beta, target.log_lik(x), cfg.alpha, B), reps, device
-        ),
-    }
-    print(json.dumps({"pieces": pieces_ms}), flush=True)
-
-    mala, _ = profiled(lambda: [step(mala_count) for _ in range(args.mala_steps)], device)
-    flow, prof = profiled(lambda: step(flow_count), device)
-    print(json.dumps({"profiled": {f"{cfg.mcmc_kernel}_x{args.mala_steps}": mala,
-                                   "flow_x1": flow}}), flush=True)
-    sort_by = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
-    print(prof.key_averages().table(sort_by=sort_by, row_limit=12), flush=True)
+    steps = lambda: [pieces.step_fn(carry, c, *noise[c]) for c in (mala_count, flow_count)]
+    steps()  # warm: builds the kernels, initialises the libraries
+    traced(steps, device, "steps")
 
 
 def masked_dichotomy(fun, min_delta, max_delta, eps: float = 1e-4, max_iter: int = 100):
@@ -304,10 +213,7 @@ def profile_smc(target, cfg, device, reps: int):
         "lmbda": float(carry.state.lmbda),
     }
     print(json.dumps({"smc": out}), flush=True)
-    summary, prof = profiled(step, device)
-    print(json.dumps({"profiled": {"smc_step_x1": summary}}), flush=True)
-    sort_by = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
-    print(prof.key_averages().table(sort_by=sort_by, row_limit=12), flush=True)
+    traced(step, device, "smc")
 
 
 def profile_baseline(target, cfg, device, name: str, reps: int):
@@ -356,10 +262,7 @@ def profile_baseline(target, cfg, device, name: str, reps: int):
           flush=True)
     out = {"step_ms": host_ms(step, reps, device), **out}
     print(json.dumps({name: out}), flush=True)
-    summary, prof = profiled(step, device)
-    print(json.dumps({"profiled": {f"{name}_step_x1": summary}}), flush=True)
-    sort_by = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
-    print(prof.key_averages().table(sort_by=sort_by, row_limit=12), flush=True)
+    traced(step, device, name)
 
 
 def profile_flow_smc(target, cfg, device, pieces, gen):
@@ -382,10 +285,7 @@ def profile_flow_smc(target, cfg, device, pieces, gen):
     step = lambda: fs.step_fn(state, fs.draw_step_noise(gen))
     out = {"step_ms": host_ms(step, 1, device)}
     print(json.dumps({"flow_smc": out}), flush=True)
-    summary, prof = profiled(step, device)
-    print(json.dumps({"profiled": {"flow_smc_step_x1": summary}}), flush=True)
-    sort_by = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
-    print(prof.key_averages().table(sort_by=sort_by, row_limit=12), flush=True)
+    traced(step, device, "flow_smc")
 
 
 if __name__ == "__main__":
