@@ -38,7 +38,7 @@ own; any failure exits non-zero before the final line:
    rate); K1's achieved TFLOP/s
    and its share of the fp32 FMA bound and of the 3xTF32 tensor-core bound;
 4. one forward + inverse transport through K1 against the same transport
-   through the nn.Module (torch.func.jvp), B=1024, d=64, both with
+   through the module field (its tangent pass), B=1024, d=64, both with
    PhiFour's fused score gate: x, u and logdet; the fused score gate of a
    stage against the generic route (vmap(jvp) of the K3-backed score), and
    that score's tangent over the 64 basis vectors against jvp(grad(...))

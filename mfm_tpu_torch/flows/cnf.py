@@ -10,8 +10,10 @@ The field is a *tangent field* ``f(x, t, ex) -> (v, jv)``: the velocity
 reference's ``jax.jvp`` of ``net.apply``. Two of them, which differ only in
 the MLP part:
 
-- ``module_tangent_field``: the net's MLP (no score term) under
-  ``torch.func.jvp``;
+- ``module_tangent_field``: the net's MLP (no score term) and its
+  tangents by a forward-mode pass written out in tensor ops: the primal
+  once, then the K tangents as one batch of rows through the layers that
+  depend on x, each rounded as its ``Dense`` rounds an operand;
 - ``kernel_tangent_field``: K1 (``ops.field.field_apply``, one launch per
   stage for all K tangents).
 
@@ -28,8 +30,8 @@ Frequencies (S, F) bind a seed sweep: ``bind(params)`` then takes
 parameters stacked on a leading seed axis, and ``f`` takes seed-major rows,
 x (S B, d), t (S B,), ex (K, S B, d), seed s owning rows s B ... s B + B -
 1 (the reference's field under ``jax.vmap`` over seeds). K1 covers every
-seed in one launch; the module path puts a ``torch.func.vmap`` over seeds
-outside its tangent ``vmap`` of ``jvp``. The score gate runs once on all
+seed in one launch; the module path multiplies each seed's rows by its
+own weights in one batched product a layer. The score gate runs once on all
 S B rows, outside any ``vmap``: a fused gate writes through the tensors'
 memory and cannot take a batched tensor.
 
@@ -49,12 +51,14 @@ when no input requires grad); ``exact_disc`` and ``forward_traj`` run
 without autograd.
 """
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.func import functional_call, jvp, vmap
+from torch.func import jvp, vmap
 
 from mfm_tpu_torch.flows.ode import odeint_grid, odeint_grid_save
+from mfm_tpu_torch.flows.vector_field import NON_LINEARITIES, Dense
 from mfm_tpu_torch.ops.field import (
     field_apply,
     field_layout,
@@ -68,61 +72,127 @@ EXACT_CHUNK = 64  # basis tangents per field call in the exact divergence
 EXACT_DISC_MAX_D = 128
 
 
-class _MLP(torch.nn.Module):
-    """The net's ``mlp`` (field and gate, without the score term) as a
-    module, for ``functional_call`` at the parameters ``net.<name>``."""
-
-    def __init__(self, net: torch.nn.Module):
-        super().__init__()
-        self.net = net
-
-    def forward(self, x, t):
-        return self.net.mlp(x, t)
+def _round(v: torch.Tensor, precision: str) -> torch.Tensor:
+    """A product operand as a ``Dense`` of this precision rounds it."""
+    return v.bfloat16().float() if precision == "default" else v
 
 
-def _seed_rows(S: int, *tensors):
-    """Seed-major rows (S B, ...) as (S, B, ...); ex (K, S B, d) as (K, S, B, d)."""
-    return [v.unflatten(-2 if v.ndim == 3 else 0, (S, -1)) for v in tensors]
+def _act_and_slope(act_name: str, z: torch.Tensor):
+    """(act(z), its derivative at z), the factor the activation's jvp puts
+    on a tangent: relu's 0/1 mask z > 0, any other's ``torch.func.jvp``
+    with a unit tangent."""
+    act = NON_LINEARITIES[act_name]
+    if act_name == "relu":
+        return act(z), (z > 0).to(z.dtype)
+    return jvp(act, (z,), (torch.ones_like(z),))
+
+
+def _tangent_into(y: torch.Tensor, slope: torch.Tensor, precision: str, step: bool):
+    """The tangent a Dense layer multiplies: its predecessor's tangent ``y``
+    (S, K, B, w) times that layer's activation derivative ``slope`` (S, 1,
+    B, w), rounded as the layer rounds an operand. A ``step`` slope (relu's
+    0/1 mask z > 0) commutes with the rounding of a finite tangent, so at
+    'default' the tangent is rounded first and the product casts it back to
+    fp32: one pass less, the same value."""
+    if step and precision == "default":
+        return y.bfloat16() * slope
+    return _round(y * slope, precision)
 
 
 def module_tangent_field(net: torch.nn.Module, freqs: Optional[torch.Tensor] = None) -> Callable:
-    """``bind(params) -> f(x, t, ex)``: the net's MLP under
-    ``torch.func.jvp`` at ``params`` (its primal computed once, inside the
-    jvp), then the score gate. ``freqs`` (S, F) binds a seed sweep (see
-    the module docstring)."""
-    mlp = _MLP(net)
+    """``bind(params) -> f(x, t, ex)``: the net's MLP and its tangents by a
+    forward-mode pass written out in tensor ops, at ``params``, then the
+    score gate. ``freqs`` (S, F) binds a seed sweep (see the module
+    docstring).
+
+    Every tensor of the pass has a leading seed axis (S = 1 for a single
+    net), and ``bmm``/``baddbmm`` multiply seed s's rows by seed s's
+    weights. ``bind`` rounds each weight once, as its ``Dense`` would at
+    every call. The primal runs once on (S, B, .) rows and keeps each
+    layer's activation derivative (``_act_and_slope``). The K
+    tangents ride as K B rows a seed (one reorder of ``ex`` in and one of
+    ``dfield`` out, none at S = 1) through the layers that depend on x:
+    the x-trunk, the joint trunk and the field head, each rounding its
+    incoming tangent as ``Dense`` rounds an operand. The net's
+    concatenations ([cos, sin] into the t-trunk, [x-trunk, t-trunk] into
+    the joint trunk) are taken as column blocks of the weight that
+    multiplies them, so nothing copies them together; a tangent meets only
+    the x-trunk's block, since the t-trunk's tangent is zero. Plain
+    differentiable ops: ``torch.autograd`` and ``torch.func.grad`` run
+    through the pass."""
+    dense = {name: m for name, m in net.named_modules() if isinstance(m, Dense)}
+    x_names, t_names, xt_names = (
+        [f"{trunk}.{i}" for i in range(len(getattr(net, trunk)))]
+        for trunk in ("x_trunk", "t_trunk", "xt_trunk"))
+    n_f = net.fourier_freqs.shape[-1]
+    t_widths = [dense[t_names[-1]].out_features] if t_names else [n_f, n_f]
+    joint_widths = [dense[x_names[-1]].out_features if x_names else net.dim] + t_widths
+    act_name = net.act_name
+    act, step = NON_LINEARITIES[act_name], act_name == "relu"
     seeds = freqs is not None and freqs.ndim == 2
-
-    def tangents(mlp_params, x, t, ex):
-        def apply(u):
-            return functional_call(mlp, mlp_params, (u, t))  # (field, gate as aux)
-
-        def one(e):
-            field, dfield, gate = jvp(apply, (x,), (e,), has_aux=True)
-            return dfield, field, gate
-
-        # field and gate do not depend on e: vmap returns them expanded over
-        # the K tangents (out_dims=None refuses a tensor batched over seeds)
-        dfield, field, gate = vmap(one)(ex)
-        return dfield, field[0], gate[0]
 
     def bind(params):
         gate_fn = net.score_gate
-        mlp_params = {f"net.{k}": v for k, v in params.items()}
-        if freqs is not None:
-            mlp_params["net.fourier_freqs"] = freqs
+        fr = freqs if freqs is not None else params.get("fourier_freqs", net.fourier_freqs)
+        S = fr.shape[0] if seeds else 1
+        fr = fr.reshape(S, 1, n_f)
+
+        def layer(name, widths=None):
+            """(the rounded weight (S, in, out) as column blocks of these
+            input widths, the bias (S, 1, out), the precision)."""
+            w, b, p = params[f"{name}.weight"], params[f"{name}.bias"], dense[name].precision
+            w = _round(w, p).reshape(S, *w.shape[-2:]).mT
+            return (w.split(widths, 1) if widths else (w,)), b.reshape(S, 1, -1), p
+
+        t_layers = [layer(n, [n_f, n_f] if i == 0 else None) for i, n in enumerate(t_names)]
+        x_layers = [layer(n) for n in x_names]
+        xt_layers = [layer(n, joint_widths if i == 0 else None) for i, n in enumerate(xt_names)]
+        gate_head = layer("gate_head", t_widths)
+        field_head = layer("field_head", None if xt_names else joint_widths)
+        tangent_layers = x_layers + xt_layers + [field_head]
+
+        def apply(spec, blocks):
+            """One Dense on its input's column blocks: their products summed
+            into the first (which no autograd node keeps), then the bias."""
+            ws, b, p = spec
+            z = torch.bmm(_round(blocks[0], p), ws[0])
+            for h, w in zip(blocks[1:], ws[1:]):
+                z = z.baddbmm_(_round(h, p), w)
+            return z + b
 
         def f(x, t, ex):
             with profiling.span("stage.field"):
-                if seeds:
-                    S = freqs.shape[0]
-                    dfield, field, gate = vmap(
-                        tangents, in_dims=(0, 0, 0, 1), out_dims=(1, 0, 0))(
-                        mlp_params, *_seed_rows(S, x, t, ex))
-                    dfield, field, gate = (dfield.flatten(1, 2), field.flatten(0, 1),
-                                           gate.flatten(0, 1))
+                profiling.count("field.tangent_pass")
+                (K, _, d), B = ex.shape, x.shape[0] // S
+                ang = (2.0 * math.pi) * t.reshape(S, B, 1) * fr
+                h_t = [torch.cos(ang), torch.sin(ang)]
+                for spec in t_layers:
+                    h_t = [act(apply(spec, h_t))]
+                slopes = []
+
+                def trunk(specs, h):
+                    """The trunk's output blocks; each layer's activation
+                    derivative kept in ``slopes``."""
+                    for spec in specs:
+                        a, slope = _act_and_slope(act_name, apply(spec, h))
+                        h = [a]
+                        slopes.append(slope[:, None])
+                    return h
+
+                h = trunk(xt_layers, trunk(x_layers, [x.reshape(S, B, d)]) + h_t)
+                field = apply(field_head, h).reshape(S * B, d)
+                gate = apply(gate_head, h_t).reshape(S * B, d)
+
+                e = ex.reshape(K, S, B, d).transpose(0, 1)  # (S, K, B, d)
+                if tangent_layers[0][2] == "default":  # reordered by the rounding's cast
+                    e = e.to(torch.bfloat16, memory_format=torch.contiguous_format).float()
                 else:
-                    dfield, field, gate = tangents(mlp_params, x, t, ex)
+                    e = e.contiguous()
+                for i, (ws, _, p) in enumerate(tangent_layers):
+                    if i:
+                        e = _tangent_into(y.view(S, K, B, -1), slopes[i - 1], p, step)
+                    y = torch.bmm(e.view(S, K * B, -1), ws[0])
+                dfield = y.view(S, K, B, d).transpose(0, 1).reshape(K, S * B, d)
             if gate_fn is None:
                 return field, dfield
             with profiling.span("stage.gate"):

@@ -17,8 +17,8 @@ batch's shape), so that each instance is one deterministic surrogate
 density; the driver draws new ones each tempering step.
 
 ``tempered_value_and_score`` is one forward transport and one reverse pass
-(``torch.func.grad``) through the module field's ``vmap(jvp)`` tangent
-field and the target's score gate. A transport that cannot be
+(``torch.func.grad``) through the module field's hand-written tangent
+pass and the target's score gate. A transport that cannot be
 differentiated is refused by name before any transport runs
 (``check_differentiable``): the fused field kernel (``pallas_field``) and a
 target whose score gate is a forward-only kernel (``PhiFour``) are forward

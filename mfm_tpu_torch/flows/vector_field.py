@@ -55,9 +55,11 @@ class Dense(nn.Linear):
     fp32 accumulation, fp32 result. Both operands are rounded to bf16 and
     multiplied as fp32 tensors: a product of two bf16 values is exact in
     fp32, so with TF32 off (``drivers.mfm.set_field_precision``) this is the
-    TPU's arithmetic, one code path on the CPU and the GPU. Under
-    ``torch.func.jvp`` the tangent is rounded to bf16 the same way, as
-    ``jax.jvp`` of a ``precision=None`` dot rounds it.
+    TPU's arithmetic, one code path on the CPU and the GPU. A tangent is
+    rounded to bf16 the same way, as ``jax.jvp`` of a ``precision=None``
+    dot rounds it: ``torch.func.jvp`` of this method does so, and a
+    transport's tangents, which ``flows.cnf.module_tangent_field`` pushes
+    through the layers by hand, are rounded there (``_round``).
     """
 
     def __init__(self, in_features: int, out_features: int, precision: str = "highest"):

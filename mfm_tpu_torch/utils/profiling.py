@@ -22,8 +22,8 @@ The program's spans (names fixed; ``PERF.md`` lists the reader of each):
 - ``flows/flow_mh.py``: ``flow.inverse`` and ``flow.forward`` (the
   transports), ``flow.target`` (value and score at the proposals) and
   ``flow.accept``;
-- ``flows/cnf.py``, in each stage's field call: ``stage.field`` (the MLP
-  under ``vmap(jvp)``, or K1), ``stage.gate`` (the score gate with its
+- ``flows/cnf.py``, in each stage's field call: ``stage.field`` (the module
+  field's tangent pass, or K1), ``stage.gate`` (the score gate with its
   copies) and ``stage.divergence`` (the exact divergence's diagonal gather
   and sum, or the probes' products); the RK4 combination is the
   transport's self time.
@@ -31,7 +31,10 @@ The program's spans (names fixed; ``PERF.md`` lists the reader of each):
 Counters: ``sync``, each host wait on a device value that ``step_fn`` or
 ``train_loop``'s chunk logging reaches (the tempering check, NUTS's tree
 reads, the chunk means, a gloo collective's copy to the host); ``stages``,
-the field evaluations of every fixed-grid ODE solve (``flows/ode.py``).
+the field evaluations of every fixed-grid ODE solve (``flows/ode.py``);
+``field.tangent_pass``, the calls of the module field
+(``flows/cnf.py::module_tangent_field``), one a stage where the exact basis
+fits one chunk (d <= 64), none on K1.
 ``counters()`` adds the kernel wrappers' own ``.launches`` as read.
 
 ``trace`` profiles a block with ``torch.profiler`` (the device's activity

@@ -203,6 +203,49 @@ def test_kernel_transport_matches_module_transport(cuda):
         assert float((a - b).abs().max()) <= 1e-4
 
 
+def test_module_field_stage_at_the_benchmark_shape(cuda):
+    """One phi-four transport stage's module field at the benchmark cell's
+    shape: 10 seeds of 1,024 rows, d = 64, widths 128, 128 Fourier
+    frequencies, the 64 basis tangents, 'default'. The hand-written pass
+    against the vmap(jvp) twin at the CPU tests' tolerance for bf16
+    rounding flips, which cuBLAS's summation orders give relu too; under the
+    profiler it launches no cat, no device-to-device memcpy and at most
+    two strided copies (the tangents' reorder in and out): a contiguous
+    cast runs as a vectorized or unrolled kernel, a strided copy as the
+    generic ``elementwise_kernel``."""
+    from test_torch_tangent_pass import assert_close, captured, nets, twin_tangent_field
+
+    S, B, d = 10, 1024, 64
+    net, freqs, params = nets("relu", "default", S, d=d, width=128, n_fourier=128)
+    net, freqs = net.to(cuda), freqs.to(cuda)
+    params = {k: v.to(cuda) for k, v in params.items()}
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = 2.0 * torch.rand((S * B, d), generator=gen, device=cuda) - 1.0
+    t = torch.full((S * B,), 0.3, device=cuda)
+    ex = torch.eye(d, device=cuda)[:, None, :].expand(d, S * B, d).contiguous()
+    with torch.no_grad():
+        got = captured(module_tangent_field(net, freqs), net, params, x, t, ex)
+        ref = captured(twin_tangent_field(net, freqs), net, params, x, t, ex)
+    for k in ("field", "dfield", "gate"):
+        assert got[k].shape == ref[k].shape
+        assert_close(got[k], ref[k], "default", flips=True)
+    assert got["dfield"].is_contiguous()
+
+    net.score_gate = None
+    f = module_tangent_field(net, freqs)(params)
+    with torch.no_grad():
+        f(x, t, ex)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            f(x, t, ex)
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() for _ in range(e.count)]
+    assert any("gemm" in n for n in names), names  # the profiler saw the device
+    assert not [n for n in names if "Cat" in n or "Memcpy" in n]
+    strided = [n for n in names if "copy" in n and n.startswith("void at::native::elementwise_kernel<")]
+    assert len(strided) <= 2, strided
+
+
 def _flow_pair(cuda, d=8):
     """One flow on K1 and on the module field (no score gate), forward only."""
     net, params = _net(cuda, d, 32, 16, seed=4)
